@@ -1,0 +1,20 @@
+"""Device resolution for the port's entry points.
+
+Entry points default to the card. Without CUDA they raise unless the
+caller asked for the CPU: nothing falls back to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

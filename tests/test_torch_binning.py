@@ -1,0 +1,124 @@
+"""Binning parity: the port's `bin_splats` and the plain version of kernel
+K3 against the JAX package on the same numpy inputs.
+
+Tolerance: every integer output is bit-equal (keys, gids, chunk metadata,
+pos_of_entry, n_entries, n_dropped), at 16x16 and 32x16 tiles, with the
+capsule cull on and off and on the coarse-key (rank_drop) path.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from dreamscene_tpu.ops import binning as jbin
+from dreamscene_tpu.ops.expand import expand_entries as j_expand
+from dreamscene_tpu_torch.ops import binning as tbin
+from dreamscene_tpu_torch.ops.expand import expand_entries as t_expand
+
+INT_FIELDS = ["rank_sorted", "gid_sorted", "n_chunks_used", "chunk_tile",
+              "chunk_s0", "chunk_lo", "chunk_hi", "chunk_first", "n_entries",
+              "n_dropped", "perm", "inv_perm", "surv_counts", "seg_starts",
+              "pos_of_entry"]
+
+
+def projected(n, width, height, seed):
+    """Random screen-space splats in numpy: means (some off screen),
+    depths with ties, radii, conics of random ellipses, opacities."""
+    rng = np.random.RandomState(seed)
+    means = np.stack([rng.uniform(-20, width + 20, n),
+                      rng.uniform(-20, height + 20, n)], 1).astype(np.float32)
+    depths = rng.uniform(0.5, 5.0, n).astype(np.float32)
+    depths[: n // 10] = depths[n // 10: 2 * (n // 10)]          # ties
+    sx = rng.uniform(0.5, 12.0, n)
+    sy = rng.uniform(0.5, 12.0, n)
+    th = rng.uniform(0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    cxx = c * c * sx * sx + s * s * sy * sy + 0.3
+    cyy = s * s * sx * sx + c * c * sy * sy + 0.3
+    cxy = c * s * (sx * sx - sy * sy)
+    det = cxx * cyy - cxy * cxy
+    conics = np.stack([cyy / det, -cxy / det, cxx / det], 1).astype(np.float32)
+    lam = 0.5 * (cxx + cyy) + np.sqrt(np.maximum(0.1, 0.25 * (cxx + cyy) ** 2 - det))
+    radii = np.ceil(3.0 * np.sqrt(lam)).astype(np.int32)
+    visible = rng.rand(n) > 0.1
+    radii = np.where(visible, radii, 0).astype(np.int32)
+    opac = rng.uniform(0.001, 1.0, n).astype(np.float32)
+    return means, depths, radii, radii > 0, conics, opac
+
+
+CASES = [
+    # (tile_w, tile_h, cull, rank_drop_override, capacity)
+    (16, 16, True, None, 6000),
+    (32, 16, True, None, 6000),
+    (32, 16, False, None, 6000),
+    (32, 16, True, 3, 6000),
+    (16, 16, True, None, 700),      # overflow: entries dropped
+]
+
+
+@pytest.mark.parametrize("tw,th,cull,rdrop,cap", CASES)
+def test_bin_splats_bit_equal(tw, th, cull, rdrop, cap):
+    width, height, n = 96, 64, 500
+    means, depths, radii, vis, conics, opac = projected(n, width, height, seed=tw + th + cap)
+    kw = dict(width=width, height=height, capacity=cap, chunk=128,
+              rank_drop_override=rdrop, tile_w=tw, tile_h=th)
+    jb = jbin.bin_splats(
+        jnp.asarray(means), jnp.asarray(depths), jnp.asarray(radii), jnp.asarray(vis),
+        conics=jnp.asarray(conics) if cull else None,
+        opacities=jnp.asarray(opac) if cull else None, interpret=True, **kw)
+    tb = tbin.bin_splats(
+        torch.from_numpy(means), torch.from_numpy(depths), torch.from_numpy(radii),
+        torch.from_numpy(vis), conics=torch.from_numpy(conics) if cull else None,
+        opacities=torch.from_numpy(opac) if cull else None, **kw)
+    if cap == 700:
+        assert int(jb.n_dropped) > 0
+    live = int((tb.chunk_hi - tb.chunk_lo).sum())
+    if cull:   # the capsule cull re-keys some entries to the trash tile
+        assert live < int(tb.n_entries)
+    for f in INT_FIELDS:
+        a = np.asarray(getattr(jb, f))
+        b = getattr(tb, f).numpy()
+        assert a.dtype == np.int32 and b.dtype == np.int32, f
+        np.testing.assert_array_equal(b, a, err_msg=f)
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_expand_plain_matches_jax_kernel(cull):
+    """K3's plain version against the Pallas kernel in interpret mode, on
+    rank-order inputs that include entry-less splats at the tail (whose
+    slots depend on the kernel's window limit)."""
+    rng = np.random.RandomState(11 + cull)
+    n, tiles_x, n_tiles = 900, 6, 24
+    count = rng.randint(0, 5, n).astype(np.int32)
+    count[700:] = 0
+    offsets = (np.cumsum(count) - count).astype(np.int32)
+    x0 = rng.randint(0, tiles_x, n)
+    nx = np.minimum(rng.randint(1, 3, n), tiles_x - x0)
+    basenx = ((rng.randint(0, 4, n) * tiles_x + x0) * 256 + nx).astype(np.int32)
+    perm = rng.permutation(n).astype(np.int32)
+    capacity = 2500
+    n_entries = min(int(count.sum()), capacity)
+    caps = None
+    if cull:
+        caps = tuple(rng.randint(0, 1 << 24, n).astype(np.int32) for _ in range(3))
+    kw = dict(capacity=capacity, n=n, n_tiles=n_tiles, tiles_x=tiles_x,
+              shift=10, rank_drop=0, tile_w=32, tile_h=16)
+    jk, jg = j_expand(
+        jnp.asarray(offsets), jnp.asarray(basenx), jnp.asarray(perm),
+        jnp.asarray(n_entries, jnp.int32),
+        caps=None if caps is None else tuple(jnp.asarray(c) for c in caps),
+        interpret=True, block=2048, **kw)
+    tk, tg = t_expand(
+        torch.from_numpy(offsets), torch.from_numpy(basenx), torch.from_numpy(perm),
+        torch.tensor(n_entries, dtype=torch.int32),
+        caps=None if caps is None else tuple(torch.from_numpy(c) for c in caps),
+        block=2048, **kw)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
+
+
+def test_max_chunks_matches():
+    for cap, nt, ch in [(240000, 512, 512), (6000, 24, 128), (1, 1, 128)]:
+        assert tbin.max_chunks(cap, nt, ch) == jbin.max_chunks(cap, nt, ch)
+    assert tbin.max_chunks(240000, 512, 512) == 1108
