@@ -4,29 +4,49 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. card name and power limit (nvidia-smi), kernel build (with ptxas's
-     registers / shared memory per kernel) and its time;
+     registers / shared memory per kernel; the six sources in parallel)
+     and its time;
   2. each hand-written kernel against its plain PyTorch version on the
      card, on seeded scenes: a small one, a 16x16-tile leg and the main
      path's full width (50K splats, 512^2, 32x16 tiles). K3 bit-equal;
      K1 rows R,G,B,DEPTH,T at atol 1e-5 / rtol 1e-4 and LIVE equal; K2
      within 1e-4 of max|g| and bit-identical across two runs. Times of
      kernel and plain version at full width;
+  2b. K4 (flash attention forward, dK/dV, dQ) against its plain versions
+     at every shape the main path gives it (bf16) plus one f32 case:
+     f32 at atol 2e-6 (forward) / 5e-6 (gradients), bf16 at max|d| <=
+     2^-7 max|plain|; times of kernels, plain versions, SDPA (forward and
+     forward+backward) and the matmul + f32-softmax module path;
   3. the slice: ObjectTrainer at BASELINE.json config #2 width (50K
      points, sh_degree 2, 512^2, C_batch 4, SD2.1-architecture UNet + full
-     VAE with seeded random weights, 77 tokens, densify off):
-     prepare_train, 2 warm-up + 5 timed train_step()s, launch counts,
-     then one step under torch.profiler (device time by phase and kernel);
+     VAE with seeded random weights, 77 tokens, densify off), DS_FLASH_ATTN
+     unset: prepare_train, 2 warm-up + 5 timed train_step()s, launch counts
+     (K1-K3 once per camera, K4 never), one step under torch.profiler
+     (device time by phase and kernel); then the same 7 steps with
+     DS_FLASH_ATTN=1, timed, with the K4 launches checked against the
+     ladder lengths;
+  3b. ObjectTrainer.train(make_videos=True) at config #2 width with
+     DS_FLASH_ATTN=1 and configs/objects/sample.yaml's cadences, from step
+     1496 to 1502 (densify/prune, opacity reset, 48-view filter, SH
+     step-up, guidance viz and a video all fire at step 1500), a snapshot
+     PLY, the refine phase (9 pseudo-GT chunks, 18 recon steps, one recon
+     densify), the final video and PLY; K4 launches checked against the
+     UNet passes and VAE calls; wall time of each part;
   4. one small FPS step on the card against the same step on the CPU
      (plain versions), same state, weights and random draws.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import glob
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -34,6 +54,7 @@ import torch
 # peak rates of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 # float operations per evaluated (entry, pixel) pair, counted from the
 # kernels' inner loops (csrc/composite_*.cu): K1 evaluates alpha (~16 incl.
 # exp) and accumulates (~11); K2 replays alpha and forms the 10 per-entry
@@ -49,11 +70,38 @@ SOURCES = {
                       "dreamscene_tpu/ops/composite.py:354"),
     "composite_bwd": ("dreamscene_tpu_torch/csrc/composite_bwd.cu",
                       "dreamscene_tpu/ops/composite.py:565"),
+    # K4: the library kernel behind dreamscene_tpu/guidance/sd_flax.py:120
+    "flash_fwd": ("dreamscene_tpu_torch/csrc/flash_fwd.cu",
+                  "jax/experimental/pallas/ops/tpu/flash_attention.py:758"),
+    "flash_bwd_dkv": ("dreamscene_tpu_torch/csrc/flash_bwd_dkv.cu",
+                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+    "flash_bwd_dq": ("dreamscene_tpu_torch/csrc/flash_bwd_dq.cu",
+                     "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
 }
+K1_K3 = ("expand_entries", "composite_fwd", "composite_bwd")
+K4 = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+BUILD = Path(__file__).resolve().parent / "build"
+# K4's shapes on the main path at config #2 width ([b, h, n, d], bf16),
+# plus one float32 case; the row each kernel's table entry reports
+K4_SHAPES = (("unet 64x64 self-attn", (12, 5, 4096, 64), torch.bfloat16),
+             ("unet 32x32 self-attn", (12, 10, 1024, 64), torch.bfloat16),
+             ("vae mid-attn, encode/pseudo-GT batch 4", (4, 1, 4096, 512), torch.bfloat16),
+             ("vae mid-attn, viz batch 1", (1, 1, 4096, 512), torch.bfloat16),
+             ("f32 check", (2, 5, 4096, 64), torch.float32))
+K4_ROW = {"flash_fwd": "unet 64x64 self-attn",
+          "flash_bwd_dkv": "vae mid-attn, encode/pseudo-GT batch 4",
+          "flash_bwd_dq": "vae mid-attn, encode/pseudo-GT batch 4"}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def fresh_dir(tag: str) -> str:
+    """A new directory under build/ (experiment folders and init-cloud
+    caches must not carry over between runs)."""
+    BUILD.mkdir(exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_", dir=BUILD)
 
 
 def cuda_time(fn, reps):
@@ -76,7 +124,8 @@ def make_scene(n_pts, width, height, seed, rng_cam_seed=0):
     from dreamscene_tpu_torch.models.init import init_object_points
     from dreamscene_tpu_torch.utils.config import GenerateCamParams
 
-    pts, cols, sls = init_object_points("default", "", "", num_pts=n_pts, seed=seed)
+    pts, cols, sls = init_object_points("default", "", fresh_dir("init"), num_pts=n_pts,
+                                        seed=seed)
     st = create_from_points(pts, cols, sh_degree=2, capacity=min(4 * n_pts, n_pts + 10000),
                             spatial_lr_scale=sls, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -237,6 +286,106 @@ def check_kernels(label, inp, timing):
     return errs, rows
 
 
+def k4_flops_bytes(shape, dtype):
+    """Work of each K4 kernel on one call: FLOPs counted from the kernels'
+    own loops (forward: q.k and p.v, 2d each per (query, key) pair; dK/dV:
+    q.k, do.v, p^T.do, ds^T.q; dQ: q.k, do.v, ds.k) and bytes moved (each
+    input read once, each output written once)."""
+    b, h, n, d = shape
+    pairs, e = b * h * n * n, torch.tensor([], dtype=dtype).element_size()
+    head, rows = b * h * n * d * e, b * h * n * 4
+    return {"flash_fwd": (4 * pairs * d, 4 * head + 2 * rows),
+            "flash_bwd_dkv": (8 * pairs * d, 6 * head + 3 * rows),
+            "flash_bwd_dq": (6 * pairs * d, 5 * head + 3 * rows)}
+
+
+def bound(flops, nbytes, dtype):
+    t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_flash(label, shape, dtype, timing=True):
+    """Phase 2b on one shape: the three K4 kernels against their plain
+    versions (the backward kernels on the plain forward's o, l, m, with
+    do = cos(o) as the JAX suite's loss gives), then times."""
+    import torch.nn.functional as F
+
+    from dreamscene_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(shape[2] + shape[3])
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(3))
+    scale = shape[3] ** -0.5
+    o_k, l_k, m_k = fa.flash_fwd(q, k, v, scale)
+    o_p, l_p, m_p = fa.flash_attention_fwd_plain(q, k, v, scale)
+    do = torch.cos(o_p.float()).to(dtype)
+    g_k = fa.flash_bwd(q, k, v, o_p, l_p, m_p, do, scale)
+    di = (o_p.float() * do.float()).sum(-1)
+    g_p = fa.flash_attention_bwd_plain(q, k, v, l_p, m_p, do, di, scale)
+    torch.cuda.synchronize()
+    errs, ok = {}, True
+    for name, a, b in (("o", o_k, o_p), ("dq", g_k[0], g_p[0]), ("dk", g_k[1], g_p[1]),
+                       ("dv", g_k[2], g_p[2])):
+        err = float((a.float() - b.float()).abs().max())
+        scale_ref = float(b.float().abs().max())
+        if dtype == torch.float32:
+            tol = 2e-6 if name == "o" else 5e-6
+        else:
+            tol = 2.0**-7 * scale_ref
+        errs[name] = err
+        ok = ok and err <= tol
+        log(f"[k4] {label} {tuple(shape)} {str(dtype)[6:]}: {name} max|d| {err:.3g} "
+            f"(tol {tol:.3g}, max|plain| {scale_ref:.3g})")
+    assert ok, f"{label}: K4 kernel differs from its plain version: {errs}"
+    assert torch.isfinite(l_k).all() and torch.isfinite(m_k).all()
+    row = {"errs": {"flash_fwd": errs["o"], "flash_bwd_dkv": max(errs["dk"], errs["dv"]),
+                    "flash_bwd_dq": errs["dq"]}}
+    if not timing:
+        return row
+    o, l, m = torch.empty_like(q), torch.empty_like(l_p), torch.empty_like(m_p)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    big = shape[3] > 128 or shape[0] * shape[1] > 20
+    reps, preps = (3, 2) if big else (10, 3)
+    t = {"flash_fwd": cuda_time(lambda: fa.launch_fwd(q, k, v, o, l, m, scale), reps),
+         "flash_bwd_dkv": cuda_time(lambda: fa.launch_bwd_dkv(q, k, v, l_p, m_p, do, di, dk, dv,
+                                                               scale), reps),
+         "flash_bwd_dq": cuda_time(lambda: fa.launch_bwd_dq(q, k, v, l_p, m_p, do, di, dq,
+                                                             scale), reps)}
+    plain_fwd = cuda_time(lambda: fa.flash_attention_fwd_plain(q, k, v, scale), preps)
+    plain_bwd = cuda_time(lambda: fa.flash_attention_bwd_plain(q, k, v, l_p, m_p, do, di,
+                                                               scale), preps)
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    def sdpa_fb():
+        F.scaled_dot_product_attention(qg, kg, vg, scale=scale).backward(do)
+
+    def naive():   # today's module path: matmul + f32 softmax (sd_modules.Attention)
+        a = torch.softmax(torch.matmul(q * scale, k.transpose(-1, -2)).float(), dim=-1)
+        return torch.matmul(a.to(dtype), v)
+
+    def naive_fb():
+        a = torch.softmax(torch.matmul(qg * scale, kg.transpose(-1, -2)).float(), dim=-1)
+        torch.matmul(a.to(dtype), vg).backward(do)
+
+    lib = {"sdpa_fwd": cuda_time(sdpa, 10), "sdpa_fwd_bwd": cuda_time(sdpa_fb, 10),
+           "naive_fwd": cuda_time(naive, reps), "naive_fwd_bwd": cuda_time(naive_fb, reps)}
+    work = k4_flops_bytes(shape, dtype)
+    row.update(ms=t, plain_ms={"flash_fwd": plain_fwd, "flash_bwd_dkv": plain_bwd,
+                               "flash_bwd_dq": plain_bwd},
+               library_ms={"flash_fwd": lib["sdpa_fwd"],
+                           "flash_bwd_dkv": lib["sdpa_fwd_bwd"] - lib["sdpa_fwd"],
+                           "flash_bwd_dq": lib["sdpa_fwd_bwd"] - lib["sdpa_fwd"]},
+               module_path_ms={"fwd": lib["naive_fwd"], "fwd_bwd": lib["naive_fwd_bwd"]},
+               bound={kk: bound(f, nb, dtype) for kk, (f, nb) in work.items()})
+    log(f"[k4] {label} times: " + json.dumps(
+        {"kernel_ms": t, "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd, **lib,
+         "bound_ms": {kk: v[0] for kk, v in row["bound"].items()}}))
+    return row
+
+
 def run_slice():
     """Phase 3: the object FPS step at config #2 width."""
     from dreamscene_tpu_torch import kernels
@@ -264,15 +413,52 @@ def run_slice():
     guidance = mtsd.make_tiny_guidance(
         cfg.guidanceParams, unet_config=sd21_unet_config(), vae_config=VAEConfig(),
         token_len=77, device="cuda")
-    tr = ObjectTrainer(cfg, guidance=guidance, exp_root="build/chip_smoke_exp",
+    tr = ObjectTrainer(cfg, guidance=guidance, exp_root=fresh_dir("slice"),
                        device="cuda")
     tr.prepare_train()
     xyz0 = tr.state.params["xyz"].clone()
     log(f"[slice] set-up {time.perf_counter() - t0:.1f}s, state capacity "
         f"{tr.state.capacity}, active {int(tr.state.aux['active'].sum())}")
     torch.cuda.reset_peak_memory_stats()
+    os.environ.pop("DS_FLASH_ATTN", None)
+    ms, counts, _ = fps_steps(tr, "slice")
+    moved = float((tr.state.params["xyz"] - xyz0).abs().max())
+    assert moved > 0, "params did not move"
+    assert all(torch.isfinite(v).all() for v in tr.state.params.values())
+    n_steps = N_STEPS_WARM + N_STEPS_TIMED
+    expect = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
+    expect.update({k: 0 for k in K4})
+    assert counts == expect, (counts, expect)
+    log(f"[slice] DS_FLASH_ATTN unset: median {ms:.1f} ms/step, xyz moved {moved:.3g}, "
+        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches {counts}, "
+        f"card {torch.cuda.get_device_name(0)}")
+    profile_step(tr, ms)
+
+    os.environ["DS_FLASH_ATTN"] = "1"
+    torch.cuda.reset_peak_memory_stats()
+    ms_f, counts_f, rungs = fps_steps(tr, "slice+flash")
+    os.environ.pop("DS_FLASH_ATTN")
+    # 10 self-attention layers at n >= 1024 per UNet pass (R rungs -> R+1
+    # passes), one VAE encode per step, one encoder backward per step
+    expect_f = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
+    expect_f.update(flash_fwd=sum(10 * (r + 1) + 1 for r in rungs),
+                    flash_bwd_dkv=n_steps, flash_bwd_dq=n_steps)
+    assert counts_f == expect_f, (counts_f, expect_f)
+    log(f"[slice] DS_FLASH_ATTN=1: median {ms_f:.1f} ms/step (unset: {ms:.1f}), rungs {rungs}, "
+        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches {counts_f}")
+    log(json.dumps({"slice_flash": {"ms_per_step_median": ms_f, "rungs": rungs,
+                                    "launches": counts_f}}))
+    return counts
+
+
+def fps_steps(tr, tag):
+    """N_STEPS_WARM + N_STEPS_TIMED train_step()s with the launch counts
+    set to 0 before and read after. Returns (median ms of the timed
+    steps, counts, ladder lengths)."""
+    from dreamscene_tpu_torch import kernels
+
     kernels.reset_counts()
-    times, losses = [], []
+    times, losses, rungs = [], [], []
     for i in range(N_STEPS_WARM + N_STEPS_TIMED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -280,28 +466,127 @@ def run_slice():
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         losses.append(loss)
+        rungs.append(tr.last_stats["n_rungs"])
         if i >= N_STEPS_WARM:
             times.append(dt)
-        log(f"[slice] step {tr.step}: loss {loss:.6g}, {dt * 1e3:.1f} ms, "
+        log(f"[{tag}] step {tr.step}: loss {loss:.6g}, {dt * 1e3:.1f} ms, "
             f"n_entries {tr.last_stats['n_entries']}, n_dropped {tr.last_stats['n_dropped']}, "
             f"ladder {tr.last_stats['n_rungs']} rungs")
     counts = dict(kernels.COUNTS)
     assert all(math.isfinite(x) for x in losses), losses
-    moved = float((tr.state.params["xyz"] - xyz0).abs().max())
-    assert moved > 0, "params did not move"
-    assert all(torch.isfinite(v).all() for v in tr.state.params.values())
-    expect = tr.guidance_opt.C_batch_size * (N_STEPS_WARM + N_STEPS_TIMED)
-    for name in kernels.KERNEL_NAMES:
-        assert counts.get(name, 0) == expect, (name, counts, expect)
     ms = float(np.median(times)) * 1e3
-    log(f"[slice] median {ms:.1f} ms/step over {N_STEPS_TIMED} steps, xyz moved {moved:.3g}, "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
-        f"launches {counts}, card {torch.cuda.get_device_name(0)}")
-    log(json.dumps({"slice": {"ms_per_step_median": ms, "ms_per_step": [t * 1e3 for t in times],
-                              "n_entries": tr.last_stats["n_entries"],
-                              "n_dropped": tr.last_stats["n_dropped"],
-                              "launches": counts}}))
-    profile_step(tr, ms)
+    log(json.dumps({tag: {"ms_per_step_median": ms, "ms_per_step": [t * 1e3 for t in times],
+                          "n_entries": tr.last_stats["n_entries"],
+                          "n_dropped": tr.last_stats["n_dropped"], "launches": counts}}))
+    return ms, counts, rungs
+
+
+def run_train():
+    """Phase 3b: ObjectTrainer.train() at config #2 width, DS_FLASH_ATTN=1,
+    sample.yaml's cadences, steps 1497-1502, refine, videos, PLYs."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.guidance import mtsd
+    from dreamscene_tpu_torch.guidance.sd_modules import VAEConfig, sd21_unet_config
+    from dreamscene_tpu_torch.models.gaussians import num_active
+    from dreamscene_tpu_torch.models.ply import load_splat_ply
+    from dreamscene_tpu_torch.training import object_trainer as OT
+    from dreamscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(Path(__file__).resolve().parent / "configs/objects/sample.yaml"), [
+        "objectParams.id=smoke", "objectParams.init_guided=default",
+        "objectParams.num_pts=50000", "objectParams.sh_degree=2",
+        "optimizationParams.iterations=1502", "optimizationParams.max_point_number=60000",
+        "reconOptimizationParams.iterations=1",
+        "reconOptimizationParams.densification_interval=10",
+        "guidanceParams.C_batch_size=4", "generateCamParams.image_w=512",
+        "generateCamParams.image_h=512", "log.exp_name=train"], object_mode=True)
+    t0 = time.perf_counter()
+    guidance = mtsd.make_tiny_guidance(
+        cfg.guidanceParams, unet_config=sd21_unet_config(), vae_config=VAEConfig(),
+        token_len=77, device="cuda")
+    tr = OT.ObjectTrainer(cfg, guidance=guidance, exp_root=fresh_dir("train"), device="cuda")
+    tr.step = 1496
+    log(f"[train] set-up {time.perf_counter() - t0:.1f}s, exp {tr.exp_path}")
+
+    # instrumentation: ladder lengths, module calls, wall time per part
+    rungs, calls, parts = [], {"unet": 0, "vae_encoder": 0, "vae_decoder": 0}, {}
+    sample_ladder = guidance.sample_ladder
+
+    def record_ladder(rate):
+        ladder = sample_ladder(rate)
+        rungs.append(len(ladder))
+        return ladder
+
+    guidance.sample_ladder = record_ladder
+    hooks = [getattr(guidance.mods, name).register_forward_hook(
+        lambda *_, name=name: calls.__setitem__(name, calls[name] + 1)) for name in calls]
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            n, sec = parts.get(name, (0, 0.0))
+            parts[name] = (n + 1, sec + time.perf_counter() - t1)
+            return out
+        return wrapper
+
+    losses, actives = [], {}
+    train_step = tr.train_step
+
+    def step_and_record():
+        losses.append(train_step())
+        actives[tr.step] = num_active(tr.state)
+        return losses[-1]
+
+    tr.train_step = timed("train_step (FPS step + densify/filter/viz)", step_and_record)
+    for name in ("prepare_train", "_densify", "gaussian_filtering", "save_guidance_viz",
+                 "refine_phase", "video_inference", "save_model"):
+        setattr(tr, name, timed(name, getattr(tr, name)))
+    recon_step = OT.recon_step
+    OT.recon_step = timed("recon_step", recon_step)
+    n0 = num_active(tr.state)
+    os.environ["DS_FLASH_ATTN"] = "1"
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        tr.train(make_videos=True)
+    finally:
+        OT.recon_step = recon_step
+        os.environ.pop("DS_FLASH_ATTN")
+        for h in hooks:
+            h.remove()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+
+    assert len(losses) == 6 and all(math.isfinite(x) for x in losses), losses
+    assert actives[1500] != actives[1499], actives
+    assert tr.rec_count == 18, tr.rec_count
+    assert parts["_densify"][0] == 2, parts["_densify"]   # step 1500 + recon 10
+    assert parts["gaussian_filtering"][0] == 1 and parts["save_guidance_viz"][0] == 1, parts
+    assert glob.glob(str(tr.vis_path / "smoke_iter_1500_vd_*")), "no guidance viz"
+    for tag in ("1500", "final"):
+        assert glob.glob(str(tr.vis_path / f"video_rgb_smoke_{tag}.mp4*")), tag
+    assert (tr.ckpt_path / "smoke_1502_model.ply").exists()
+    final = tr.ckpt_path / "smoke_final_model.ply"
+    n_final = num_active(tr.state)
+    assert num_active(load_splat_ply(str(final), device="cuda")) == n_final
+    assert all(torch.isfinite(v).all() for v in tr.state.params.values())
+    assert calls["unet"] == sum(r + 1 for r in rungs), (calls, rungs)
+    expect = {"flash_fwd": 10 * calls["unet"] + calls["vae_encoder"] + calls["vae_decoder"],
+              "flash_bwd_dkv": len(losses), "flash_bwd_dq": len(losses)}
+    assert all(counts[k] == v for k, v in expect.items()), (counts, expect, calls)
+    assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES), counts
+    log(f"[train] train() {wall:.1f}s wall; losses {losses}; active {n0} -> "
+        f"{actives} -> final {n_final}; rungs {rungs}; module calls {calls}; "
+        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {counts}")
+    log(json.dumps({"train": {"wall_s": wall, "parts_s": {k: {"calls": n, "s": sec}
+                                                          for k, (n, sec) in parts.items()},
+                              "launches": counts, "module_calls": calls, "rungs": rungs,
+                              "active": {"start": n0, **actives, "final": n_final},
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}}))
     return counts
 
 
@@ -411,7 +696,7 @@ def small_step_parity():
     cfg.generateCamParams.image_w = 64
     cfg.generateCamParams.image_h = 64
     cfg.mode_args = {}
-    tr = ObjectTrainer(cfg, exp_root="build/chip_smoke_exp", device="cpu")
+    tr = ObjectTrainer(cfg, exp_root=fresh_dir("parity"), device="cpu")
     tr.prepare_train()
     inp = tr.step_inputs()
     res_cpu = fps_step(**inp)
@@ -446,6 +731,10 @@ def main():
 
     torch.manual_seed(0)
     errs = {k: 0.0 for k in kernels.KERNEL_NAMES}
+    k4 = {}
+    for label, shape, dtype in K4_SHAPES:
+        k4[label] = check_flash(label, shape, dtype)
+        errs.update({k: max(errs[k], v) for k, v in k4[label]["errs"].items()})
     legs = [("small 2K 128^2 32x16", 2_000, 128, 128, 32, 16, False),
             ("16x16 tiles 20K 256^2", 20_000, 256, 256, 16, 16, False),
             ("full width 50K 512^2 32x16", 50_000, 512, 512, 32, 16, True)]
@@ -454,12 +743,15 @@ def main():
         st, cam = make_scene(n_pts, w, h, seed=n_pts)
         inp = binned_inputs(st, cam, tw, th)
         e, r = check_kernels(label, inp, timing)
-        errs = {k: max(errs[k], e[k]) for k in errs}
+        errs.update({k: max(errs[k], v) for k, v in e.items()})
         rows = r or rows
-    log(json.dumps({"kernels": [{"name": k, "max_err": errs[k], "ms": rows[k]["ms"]}
-                                for k in kernels.KERNEL_NAMES]}))
+    for k in K4:
+        r = k4[K4_ROW[k]]
+        rows[k] = dict(ms=r["ms"][k], plain_ms=r["plain_ms"][k], library_ms=r["library_ms"][k],
+                       bound_ms=r["bound"][k][0], bound_by=r["bound"][k][1])
 
     counts = run_slice()
+    counts.update({k: v for k, v in run_train().items() if k in K4})
     small_step_parity()
 
     table = []
@@ -469,7 +761,9 @@ def main():
         table.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                       "launches": counts[k], "max_abs_err": errs[k], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"], "library_ms": None})
+                      "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+    log(json.dumps({"k4_shapes": {lab: {kk: v for kk, v in r.items() if kk != "bound"}
+                                  for lab, r in k4.items()}}))
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Object-level camera pose sampling (host-side numpy).
 
-Copy of dreamscene_tpu/cameras/sampling.py, the parts the FPS step uses:
-random poses and the anti-multi-face curriculum (reference:
-utils/cam_utils.py:229-238, 584-790, 1732-1792). World convention: z-up; a pose is camera-to-world with columns
+Copy of dreamscene_tpu/cameras/sampling.py, the parts object generation
+uses: random poses, the anti-multi-face curriculum, and the circle /
+clip / sphere / reco rigs (reference: utils/cam_utils.py:47-134,
+229-310, 584-790, 1322-1535, 1732-1892). World convention: z-up; a pose is camera-to-world with columns
 (-right, up, forward) and the camera placed on a sphere at (theta: polar
 from +z, phi: azimuth measured from +y toward +x, i.e. centers =
 r*(sin t sin p, sin t cos p, cos t)).
@@ -21,8 +22,39 @@ import numpy as np
 
 from dreamscene_tpu_torch.cameras.camera import Camera, focal2fov, fov2focal
 
+DIR_NAMES = ["front", "side", "back", "side", "overhead", "bottom", "zoom in"]
+
+
 def safe_normalize(v, eps=1e-20):
     return v / np.sqrt(np.maximum(np.sum(v * v, axis=-1, keepdims=True), eps))
+
+
+def get_dir_ind(theta_deg: float, phi_deg: float, radius: float,
+                overhead_threshold: float = 30.0, front_threshold: float = 75.0,
+                zoom_in_thresh: float = 1.1) -> str:
+    """View-direction bucket for view-dependent prompts (reference:
+    cam_utils.py:47-134, default branch). theta/phi are deltas against
+    the default view: theta in [-90,90], phi in [-180,180]."""
+    t = math.radians(theta_deg + 90.0)
+    p = math.radians(phi_deg + 180.0)
+    ot = math.radians(overhead_threshold)
+    ft = math.radians(front_threshold)
+    res = 0
+    if (p >= 2 * math.pi - ft / 2) or (p < ft / 2):
+        res = 0
+    if ft / 2 <= p < math.pi - ft / 2:
+        res = 1
+    if math.pi - ft / 2 <= p < math.pi + ft / 2:
+        res = 2
+    if math.pi + ft / 2 <= p < 2 * math.pi - ft / 2:
+        res = 3
+    if t <= ot:
+        res = 4
+    if t >= math.pi - ot:
+        res = 5
+    if radius <= zoom_in_thresh:
+        res = 6
+    return DIR_NAMES[res]
 
 
 def gen_random_pos(rng: np.random.Generator, lo: float, hi: float, gamma: float = 1.0):
@@ -65,6 +97,11 @@ def spherical_centers(radius, thetas_deg, phis_deg):
         [r * np.sin(t) * np.sin(p), r * np.sin(t) * np.cos(p), r * np.cos(t)],
         axis=-1,
     )
+
+
+def circle_poses(radius, theta_deg, phi_deg):
+    """reference: cam_utils.py:277-309."""
+    return _lookat_pose(spherical_centers(radius, theta_deg, phi_deg))
 
 
 def rand_poses(
@@ -189,4 +226,59 @@ def load_random_cam_avoid_multiface(
         )
         cam = _make_camera(opt, pose, fov, theta, phi, radius, ssaa=ssaa)
         cams.append(dataclasses.replace(cam, trans=trans))
+    return cams
+
+
+def load_circle_cam(opt, size=120, render45=True) -> List[Camera]:
+    """Orbit rig at the default polar angle (+ an optional 45-degree ring)
+    (reference: GenerateCircleCameras/loadCircleCam,
+    cam_utils.py:1455-1535, 1838-1858)."""
+    cams = []
+    rings = [opt.default_polar] + ([opt.default_polar * 2 // 3] if render45 else [])
+    for theta in rings:
+        for idx in range(size):
+            phi = idx / size * 360.0
+            pose = circle_poses(opt.default_radius, theta, phi)
+            cams.append(_make_camera(opt, pose, opt.default_fovy, theta, phi,
+                                     opt.default_radius))
+    return cams
+
+
+def load_clip_cam(opt, angles=(75, 90), size=120, clip_radius=4.0) -> List[Camera]:
+    """reference: GenerateClipCameras/loadClipCam (cam_utils.py:1411-1453,
+    1815-1836)."""
+    cams = []
+    for ang in angles:
+        for idx in range(size):
+            phi = idx / size * 360.0
+            pose = circle_poses(clip_radius, ang, phi)
+            cams.append(_make_camera(opt, pose, opt.default_fovy, ang, phi, clip_radius))
+    return cams
+
+
+def load_sphere_cam(rng, opt, size=48) -> List[Camera]:
+    """Random directions on the default-radius sphere, for the importance
+    scoring pass (reference: sphere_poses/loadSphereCam,
+    cam_utils.py:1322-1336, 1860-1880)."""
+    cams = []
+    for _ in range(size):
+        c = rng.normal(size=3)
+        c = c / np.linalg.norm(c) * opt.default_radius
+        cams.append(_make_camera(opt, _lookat_pose(c), opt.default_fovy, 0.0, 0.0,
+                                 opt.default_radius))
+    return cams
+
+
+def load_reco_cam(opt, circle_size=(4, 12, 14, 6), thetas=(100, 85, 75, 55),
+                  scale=1.0) -> List[Camera]:
+    """Fixed multi-ring rig of the refine phase (reference:
+    GenerateRecoCameras/loadRecoCam, cam_utils.py:1369-1409, 1882-1892;
+    layout from training/object_trainer.py:476)."""
+    cams = []
+    radius = opt.default_radius * scale
+    for theta, n in zip(thetas, circle_size):
+        for idx in range(n):
+            phi = idx / n * 360.0
+            pose = circle_poses(radius, theta, phi)
+            cams.append(_make_camera(opt, pose, opt.default_fovy, theta, phi, radius))
     return cams

@@ -9,7 +9,10 @@ guidance/multitime_sd_utils.py:44-647):
     gradient), so autograd keeps none of the UNet passes;
   * `csd_grad` — w(alpha_t) * (uncond + s*(cond - uncond) - blank),
     averaged over rungs;
-  * `specify_gradient_loss` — sum(latents * grad.detach()).
+  * `specify_gradient_loss` — sum(latents * grad.detach());
+  * `pseudo_gt_images` — the decoded x0-hat of the first rung, the
+    refine phase's pseudo ground truth; `guidance_viz_grid` — the
+    per-interval debug grid.
 Latents cross these functions as NHWC [B, h, w, 4] and images as NCHW, as
 in the JAX package; the modules run NCHW inside.
 
@@ -27,6 +30,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dreamscene_tpu_torch.device import resolve_device
 from dreamscene_tpu_torch.guidance import sd_modules as sdm
@@ -35,7 +39,15 @@ from dreamscene_tpu_torch.ops.ddim import (
     add_noise,
     ddim_step,
     make_schedule,
+    pred_original,
 )
+
+# latent -> approximate RGB preview (multitime_sd_utils.py:135-144)
+RGB_LATENT_FACTORS = np.array(
+    [[0.298, 0.207, 0.208],
+     [0.187, 0.286, 0.173],
+     [-0.158, 0.189, 0.264],
+     [-0.184, -0.271, -0.473]], np.float32)
 
 
 @dataclasses.dataclass
@@ -66,6 +78,14 @@ def encode_images(mods: GuidanceModules, images_nchw, eps):
     logvar = torch.clamp(logvar, -30.0, 20.0)
     latents = mean + torch.exp(0.5 * logvar) * eps
     return latents * mods.scaling_factor
+
+
+@torch.no_grad()
+def decode_latents(mods: GuidanceModules, latents):
+    """latents [B,h,w,4] -> images [B,3,H,W] in [0,1] (reference
+    decode_latents, multitime_sd_utils.py:630-637)."""
+    x = mods.vae_decoder(_nchw(latents / mods.scaling_factor))
+    return torch.clamp(x / 2.0 + 0.5, 0.0, 1.0)
 
 
 def make_ladder_noise(generator: torch.Generator, shape, device):
@@ -140,6 +160,63 @@ def csd_grad(mods: GuidanceModules, scores, guidance_scale: float,
 def specify_gradient_loss(latents, grad):
     """loss whose d/d latents == grad (SpecifyGradient)."""
     return (latents * grad.detach()).sum()
+
+
+@torch.no_grad()
+def pseudo_gt_images(mods: GuidanceModules, scores, guidance_scale: float):
+    """Decoded x0-hat of the first non-zero rung under CFG: the pseudo
+    ground truth of the refine phase (train_step_gt,
+    multitime_sd_utils.py:446-458)."""
+    t_i, (cond, uncond, _), lat = scores[1]
+    pred_noise = uncond + guidance_scale * (cond - uncond)
+    x0 = pred_original(mods.schedule, pred_noise,
+                       torch.full((lat.shape[0],), t_i, device=lat.device), lat)
+    return decode_latents(mods, x0)
+
+
+@torch.no_grad()
+def guidance_viz_grid(mods: GuidanceModules, images, depth, alpha, latents, grad, scores,
+                      guidance_scale: float):
+    """Debug grid like the reference's per-interval dumps
+    (multitime_sd_utils.py:291-337): rendered rgb / depth / alpha /
+    saturation / latent-RGB preview / |grad| heatmap / decoded x0-hat per
+    rung. images [B,3,H,W]; depth/alpha [H,W]; latents/grad [B,h,w,4].
+    Returns a list of [3,H,W] numpy arrays for utils.media.save_image_grid."""
+    h, w = images.shape[-2:]
+    rows = [images[0], depth[None].repeat(3, 1, 1), alpha[None].repeat(3, 1, 1),
+            rgb2sat(images[:1])[0].repeat(3, 1, 1)]
+    lat_rgb = lat2rgb(latents[0]).permute(2, 0, 1)
+    rows.append(F.interpolate(lat_rgb[None], size=(h, w), mode="nearest")[0])
+    g = grad[0].abs().mean(-1)
+    g = g / torch.clamp_min(g.max(), 1e-8)
+    g = F.interpolate(g[None, None], size=(h, w), mode="bilinear", align_corners=False)
+    rows.append(g[0].repeat(3, 1, 1))
+    for t_i, (cond, uncond, _), lat in scores[1:]:
+        pred = uncond + guidance_scale * (cond - uncond)
+        x0 = pred_original(mods.schedule, pred,
+                           torch.full((lat.shape[0],), t_i, device=lat.device), lat)
+        dec = decode_latents(mods, x0[:1])
+        if tuple(dec.shape[-2:]) != (h, w):
+            dec = F.interpolate(dec, size=(h, w), mode="bilinear", align_corners=False)
+        rows.append(dec[0])
+    return [r.float().cpu().numpy() for r in rows]
+
+
+def lat2rgb(latents):
+    """Latent -> approximate RGB (reference utils/viz_utils.py:6-12),
+    NHWC."""
+    factors = torch.as_tensor(RGB_LATENT_FACTORS, device=latents.device)
+    return torch.clamp(latents @ factors, 0.0, 1.0)
+
+
+def rgb2sat(img_nchw, t=None):
+    """Saturation map (reference utils/viz_utils.py:15-21)."""
+    mx = img_nchw.amax(1, keepdim=True) + 1e-5
+    mn = img_nchw.amin(1, keepdim=True)
+    sat = (mx - mn) / mx
+    if t is not None:
+        sat = (1 - t) * sat
+    return sat
 
 
 def horizontal_flip(flip: bool, *tensors_nchw):

@@ -11,7 +11,10 @@ config's dtype (bf16 for the SD2.1/VAE configs, f32 for the tiny ones) by
 casting its input and weights, as the Flax modules do. Normalizations
 compute in float32 with epsilon 1e-6 (Flax's default); GELU is the tanh
 approximation (Flax's default). Attention is a plain matmul + float32
-softmax, as the JAX package leaves it to XLA by default.
+softmax, as the JAX package leaves it to XLA by default; with
+DS_FLASH_ATTN=1 on the card, self-attention of 1024+ tokens goes through
+the K4 flash-attention kernels instead (ops/flash_attention.py, the gate
+of sd_flax.py:102-117), in `Attention` and `VAEAttention` alike.
 
 The ControlNet is not ported yet (ROADMAP queue A).
 """
@@ -25,6 +28,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from dreamscene_tpu_torch.ops import flash_attention as fa
 
 NORM_EPS = 1e-6
 
@@ -177,10 +182,14 @@ class Attention(nn.Module):
         q = self.to_q(x).reshape(b, n, self.heads, self.head_dim).transpose(1, 2)
         k = self.to_k(context).reshape(b, m, self.heads, self.head_dim).transpose(1, 2)
         v = self.to_v(context).reshape(b, m, self.heads, self.head_dim).transpose(1, 2)
-        attn = torch.matmul(q * self.head_dim**-0.5, k.transpose(-1, -2))
-        attn = torch.softmax(attn.float(), dim=-1).to(self.dt)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, -1)
-        return self.to_out[0](out)
+        scale = self.head_dim**-0.5
+        if fa.use_flash_attention(n, m, x.device):
+            out = fa.flash_attention(q, k, v, scale).to(self.dt)
+        else:
+            attn = torch.matmul(q * scale, k.transpose(-1, -2))
+            attn = torch.softmax(attn.float(), dim=-1).to(self.dt)
+            out = torch.matmul(attn, v)
+        return self.to_out[0](out.transpose(1, 2).reshape(b, n, -1))
 
 
 class GEGLU(nn.Module):
@@ -370,9 +379,15 @@ class VAEAttention(nn.Module):
         b, c, h, w = x.shape
         y = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
-        attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float() * c**-0.5,
-                             dim=-1).to(self.dt)
-        y = self.to_out[0](torch.matmul(attn, v))
+        if fa.use_flash_attention(h * w, h * w, x.device):
+            # single head, head_dim = c; the VAE encoder is differentiated
+            # in the FPS step, through the kernels' backward
+            y = fa.flash_attention(q[:, None], k[:, None], v[:, None], c**-0.5)[:, 0].to(self.dt)
+        else:
+            attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float() * c**-0.5,
+                                 dim=-1).to(self.dt)
+            y = torch.matmul(attn, v)
+        y = self.to_out[0](y)
         return x + y.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
 

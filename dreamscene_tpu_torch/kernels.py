@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-lineinfo"]
 
 COUNTS: collections.Counter = collections.Counter()
-KERNEL_NAMES = ("expand_entries", "composite_fwd", "composite_bwd")
+KERNEL_NAMES = ("expand_entries", "composite_fwd", "composite_bwd", "flash_fwd",
+                "flash_bwd_dkv", "flash_bwd_dq")
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -59,6 +60,23 @@ _SIGNATURES = {
         _P, _P,                                # final grad_out
         _P,                                    # grec
         _I, _I, _I, _I, _I,                    # n_tiles tiles_x tile_w tile_h chunk
+        _P,                                    # stream
+    ],
+    "ds_flash_fwd": [
+        _P, _P, _P, _P, _P, _P,                # q k v o l m
+        _I, _I, _I, _F, _I,                    # bh n d scale bf16
+        _P,                                    # stream
+    ],
+    "ds_flash_bwd_dkv": [
+        _P, _P, _P, _P, _P, _P, _P,            # q k v l m dout di
+        _P, _P,                                # dk dv
+        _I, _I, _I, _F, _I,                    # bh n d scale bf16
+        _P,                                    # stream
+    ],
+    "ds_flash_bwd_dq": [
+        _P, _P, _P, _P, _P, _P, _P,            # q k v l m dout di
+        _P,                                    # dq
+        _I, _I, _I, _F, _I,                    # bh n d scale bf16
         _P,                                    # stream
     ],
 }

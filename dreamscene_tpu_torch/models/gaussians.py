@@ -91,6 +91,10 @@ class GaussianState:
         return self
 
 
+def inverse_sigmoid(x):
+    return torch.log(x / (1 - x))
+
+
 def num_active(state: GaussianState) -> int:
     return int(state.aux["active"].sum())
 
@@ -103,6 +107,27 @@ def mean_sq_dist_to_3nn(points: np.ndarray) -> np.ndarray:
     tree = cKDTree(points)
     d, _ = tree.query(points, k=4, workers=-1)   # self + 3 NN
     return (d[:, 1:] ** 2).mean(axis=1)
+
+
+def resize(state: GaussianState, new_capacity: int) -> GaussianState:
+    """Grow the capacity: rows past the old capacity are zero (inactive).
+    Shrinking is refused; prune instead."""
+    old_c = state.capacity
+    if new_capacity < old_c:
+        raise ValueError("shrinking not supported; prune instead")
+
+    def pad(d):
+        out = {}
+        for k, x in d.items():
+            if x.dim() == 0 or x.shape[0] != old_c:
+                out[k] = x
+            else:
+                out[k] = torch.cat([x, x.new_zeros((new_capacity - old_c,) + x.shape[1:])])
+        return out
+
+    return dataclasses.replace(state, params=pad(state.params), aux=pad(state.aux),
+                               opt=AdamState(state.opt.count, pad(state.opt.mu),
+                                             pad(state.opt.nu)))
 
 
 def adam_init(params: dict) -> AdamState:

@@ -9,7 +9,8 @@ Pipeline: project (autograd) -> bin (integer plumbing, no grad) ->
 `GatherComposite` (record gather + K1; its backward runs K2 and reduces
 the per-entry grad table back to splats) -> image assembly (autograd).
 The screen-space mean gradient for densification comes through the
-zero-valued `means2d_probe` input, as in the JAX package.
+zero-valued `means2d_probe` input, as in the JAX package; `score_render`
+takes each splat's importance as the gradient of a zero colour probe.
 """
 
 from __future__ import annotations
@@ -175,3 +176,20 @@ def render_from_splats(splats, width: int, height: int, bg, capacity: int,
         "n_dropped": binned.n_dropped,
         "n_entries": binned.n_entries,
     }
+
+
+def score_render(**kwargs) -> dict:
+    """`render` plus per-splat importance (the comp- rasterizer's
+    score_flag variant): important_score[g] = sum over pixels of the
+    splat's blend weight T*alpha, the gradient of sum(accumulated red)
+    with respect to a zero post-clamp colour probe, through K2."""
+    n = kwargs["means3d"].shape[0]
+    probe = torch.zeros((n, 3), device=kwargs["means3d"].device, requires_grad=True)
+    with torch.enable_grad():
+        out = render(**kwargs, colors_probe=probe)
+        # pre-background accumulated rgb = image - T*bg
+        rgb_acc = out["image"] - out["t_final"][None] * kwargs["bg"][:, None, None]
+        (g,) = torch.autograd.grad(rgb_acc[0].sum(), probe)
+    out = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
+    out["important_score"] = g[:, 0]
+    return out

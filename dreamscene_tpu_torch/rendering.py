@@ -1,8 +1,15 @@
-"""Render augmentations (the part of dreamscene_tpu/rendering.py that the
-object FPS step uses): host-sampled per-camera augmentation flags.
+"""Render entry points of object generation: object_render and
+score_render, plus the host-sampled train-time augmentations.
 
-object_render, scene_render and score_render are not ported yet
-(ROADMAP queue A).
+Port of dreamscene_tpu/rendering.py:1-178 (reference SceneGaussian
+render wrappers, scene_gaussian.py:546-671, 895-1044):
+  * activations -> rasterizer inputs (exp / sigmoid / normalize);
+  * augmentations: SH-degree drop, background, SH noise, scale noise
+    (scene_gaussian.py:723-732, 850-857). The noise enters as explicit
+    standard-normal tensors (`shs_noise` [C,K,3], `scale_noise` [C,3]),
+    as in `fps_step`, where the JAX package draws it from a key;
+  * depth -> normalized disparity (scene_gaussian.py:871-881).
+scene_render is not ported yet (ROADMAP queue A, the scene path).
 """
 
 from __future__ import annotations
@@ -10,6 +17,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from dreamscene_tpu_torch.cameras.camera import Camera
+from dreamscene_tpu_torch.models.gaussians import GaussianState
+from dreamscene_tpu_torch.ops import rasterizer as R
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,3 +52,74 @@ def sample_aug(rng: np.random.Generator, model_args, bg_color=(0.0, 0.0, 0.0),
     scale_noise = 1.0 if rng.random() < model_args.scale_aug_ratio else 0.0
     return RenderAug(sh_degree_drop=sh_drop, bg_color=bg, shs_noise=shs_noise,
                      scale_noise=scale_noise, seed=int(rng.integers(0, 2**31)))
+
+
+def camera_arrays(camera: Camera, device) -> dict:
+    return dict(viewmatrix=torch.as_tensor(camera.world_view_transform, device=device),
+                projmatrix=torch.as_tensor(camera.full_proj_transform, device=device),
+                campos=torch.as_tensor(camera.camera_center, device=device),
+                tanfovx=camera.tanfovx, tanfovy=camera.tanfovy, width=camera.width,
+                height=camera.height)
+
+
+def _postprocess(out: dict, camera: Camera) -> dict:
+    """depth + alpha -> normalized disparity, returned as "depth" like the
+    reference (scene_gaussian.py:871-881): disp = focal / (depth +
+    10*alpha + 1e-5), min over the empty (alpha <= 0.1) region, with the
+    JAX package's 0/0 guard on the denominator."""
+    raw_depth, alpha = out["depth"], out["alpha"]
+    focal = 1.0 / (2.0 * camera.tanfovx)
+    disp = focal / (raw_depth + alpha * 10.0 + 1e-5)
+    empty = alpha <= 0.1
+    min_d = torch.where(empty.any(),
+                        torch.where(empty, disp, torch.full_like(disp, float("inf"))).min(),
+                        disp.min())
+    disp = (disp - min_d) / torch.clamp_min(disp.max() - min_d, 1e-12)
+    out["raw_depth"] = raw_depth
+    # jnp.clip as min(max()): the gradient at the bounds splits like the JAX one
+    out["depth"] = torch.minimum(torch.maximum(disp, disp.new_tensor(0.0)), disp.new_tensor(1.0))
+    return out
+
+
+def prepare_inputs(state: GaussianState, aug: RenderAug | None = None, shs_noise=None,
+                   scale_noise=None) -> dict:
+    """Activations + augmentation noise -> rasterizer inputs (noise
+    semantics: scene_gaussian.py:850-857)."""
+    shs = state.get_features
+    scales = state.get_scaling
+    if aug is not None and aug.shs_noise > 0:
+        if shs_noise is None:
+            raise ValueError("aug.shs_noise > 0 needs the shs_noise tensor")
+        shs = shs + shs_noise * (0.2**0.5) * shs
+    if aug is not None and aug.scale_noise > 0:
+        if scale_noise is None:
+            raise ValueError("aug.scale_noise > 0 needs the scale_noise tensor")
+        scales = torch.clamp_min(scales + scale_noise * (0.2**0.5) * scales / 4, 0.0)
+    return dict(means3d=state.get_xyz, scales=scales, quats=state.get_rotation,
+                opacities=state.get_opacity[:, 0], shs=shs, valid_mask=state.aux["active"])
+
+
+def object_render(state: GaussianState, camera: Camera, bg_color=None,
+                  aug: RenderAug | None = None, test: bool = False, means2d_probe=None,
+                  capacity_mult: int = 4, shs_noise=None, scale_noise=None) -> dict:
+    """Single-model render on the state's device (reference
+    object_render, scene_gaussian.py:895-1044)."""
+    inputs = prepare_inputs(state, None if test else aug, shs_noise, scale_noise)
+    sh_degree = 0 if (aug and aug.sh_degree_drop and not test) else state.active_sh_degree
+    bg = bg_color if bg_color is not None else (aug.bg_color if aug else (0, 0, 0))
+    out = R.render(**inputs, **camera_arrays(camera, state.device),
+                   bg=torch.tensor(bg, dtype=torch.float32, device=state.device),
+                   sh_degree=sh_degree, capacity=capacity_mult * state.capacity,
+                   means2d_probe=means2d_probe, device=state.device)
+    return _postprocess(out, camera)
+
+
+def score_render(state: GaussianState, camera: Camera, bg_color=(0.0, 0.0, 0.0),
+                 capacity_mult: int = 4) -> dict:
+    """Render + per-splat importance (reference score_render,
+    scene_gaussian.py:546-671)."""
+    out = R.score_render(**prepare_inputs(state), **camera_arrays(camera, state.device),
+                         bg=torch.tensor(bg_color, dtype=torch.float32, device=state.device),
+                         sh_degree=state.active_sh_degree,
+                         capacity=capacity_mult * state.capacity, device=state.device)
+    return _postprocess(out, camera)

@@ -1,33 +1,40 @@
-"""Object trainer: the Formation Pattern Sampling training step, torch.
+"""Object trainer: Formation Pattern Sampling + reconstructive refinement,
+torch.
 
 Port of dreamscene_tpu/training/object_trainer.py (reference:
-training/object_trainer.py:19-738), first slice: `ObjectTrainer.__init__`,
-`prepare_train` and `train_step` with the FPS step (`fps_step`):
-  * render C_batch cameras through the rasterizer (hand-written kernels
-    on the card) with per-camera SH/scale noise augmentation;
-  * VAE-encode the renders (or the disparity maps, `as_latent`);
-  * the DDIM-inversion UNet ladder (no grad) and the CSD gradient;
-  * loss = sum(latents * sg(grad)) + lambda_tv*(tv(img)+tv(disp))
+training/object_trainer.py:19-738):
+  * `fps_step`, one FPS training step: render C_batch cameras through the
+    rasterizer (hand-written kernels on the card) with per-camera SH/scale
+    noise augmentation; VAE-encode the renders (or the disparity maps,
+    `as_latent`); the DDIM-inversion UNet ladder (no grad) and the CSD
+    gradient; loss = sum(latents * sg(grad)) + lambda_tv*(tv(img)+tv(disp))
     + lambda_scale * mean scale; backward through the VAE encoder and the
     rasterizer's VJP; masked Adam; densification statistics from the last
-    camera (a reference quirk the JAX package keeps).
+    camera (a reference quirk the JAX package keeps);
+  * `ObjectTrainer.train_step`: the step plus the densify/prune cadence,
+    opacity reset, capacity growth, the step-1500 importance filter and
+    the guidance visualization;
+  * `refine_phase` / `recon_step`: pseudo-GT from the 36-view reco rig,
+    then per-view L2*100 updates;
+  * `train()`: resume from a snapshot, FPS steps, snapshot PLY, refine,
+    videos, final PLY.
 
-Host randomness (cameras, ladders, augmentation flags, flips, as_latent)
-comes from the same numpy generators in the same order as the JAX
-trainer. Tensor randomness (ladder noise, VAE posterior eps, SH/scale
-noise) is drawn from the guidance's torch.Generator on the device and
-passed to `fps_step` as explicit tensors.
+Host randomness (cameras, ladders, augmentation flags, flips, as_latent,
+densification seeds) comes from the same numpy generators in the same
+order as the JAX trainer. Tensor randomness (ladder noise, VAE posterior
+eps, SH/scale noise, split samples) is drawn from torch Generators on the
+device and passed to the step functions as explicit tensors.
 
-Not ported yet (ROADMAP queue A, slice 2) and raising NotImplementedError
-where `train_step` reaches them: densify/prune, opacity reset,
-importance filtering (step 1500), guidance visualization; and the
-refine phase, PLY save/resume, videos, `train()` and the CLI. The
-multi-device mesh raises as well.
+Not ported (ROADMAP queue A): the ControlNet (a config naming one
+raises), mesh export (`mode_args.export_mesh` raises) and the
+multi-device mesh (raises).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import os
 from pathlib import Path
 
 import numpy as np
@@ -38,17 +45,23 @@ from dreamscene_tpu_torch.device import resolve_device
 from dreamscene_tpu_torch.guidance import mtsd
 from dreamscene_tpu_torch.models import densify as D
 from dreamscene_tpu_torch.models.gaussians import (
+    AdamState,
     GaussianState,
     adam_update,
     create_from_points,
     group_lrs,
+    num_active,
+    resize,
 )
 from dreamscene_tpu_torch.models.init import init_object_points
+from dreamscene_tpu_torch.models.ply import _parse_ply, load_splat_ply, save_splat_ply
 from dreamscene_tpu_torch.ops.losses import tv_loss
 from dreamscene_tpu_torch.ops.rasterizer import render
-from dreamscene_tpu_torch.rendering import sample_aug
+from dreamscene_tpu_torch.rendering import object_render, sample_aug
 from dreamscene_tpu_torch.training.capacity import CapacityController
+from dreamscene_tpu_torch.training.filtering import importance_filter
 from dreamscene_tpu_torch.utils.experiment import setup_experiment_logging
+from dreamscene_tpu_torch.utils.media import save_image_grid, write_video
 
 logger = logging.getLogger("dreamscene_tpu_torch")
 
@@ -238,8 +251,37 @@ def fps_step(state: GaussianState, mods: mtsd.GuidanceModules, cams: list, aug,
                 probe_grad=probes.grad[c_batch - 1])
 
 
+def recon_step(state: GaussianState, cam: dict, gt_image, lrs: dict, *, width: int,
+               height: int, capacity: int, active_deg: int) -> dict:
+    """One refine-phase step (the JAX package's jitted `_recon_step_fn`):
+    render one reco camera on a black background, loss = 100 *
+    mean((image - gt)^2), backward through the rasterizer, masked Adam,
+    densification statistics. Returns the new params/opt/aux, the loss
+    and the raw gradients."""
+    params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+    active = state.aux["active"]
+    probe = torch.zeros((params["xyz"].shape[0], 2), device=state.device, requires_grad=True)
+    q = params["rotation"]
+    out = render(
+        means3d=params["xyz"], scales=torch.exp(params["scaling"]),
+        quats=q / torch.linalg.norm(q, dim=-1, keepdim=True),
+        opacities=torch.sigmoid(params["opacity"])[:, 0],
+        shs=torch.cat([params["features_dc"], params["features_rest"]], dim=1), **cam,
+        width=width, height=height, bg=torch.zeros(3, device=state.device),
+        sh_degree=active_deg, capacity=capacity, means2d_probe=probe, valid_mask=active,
+        device=state.device)
+    loss = 100.0 * torch.mean((out["image"] - gt_image) ** 2)
+    loss.backward()
+    grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
+             for k, v in params.items()}
+    new_params, new_opt = adam_update(state.params, grads, state.opt, active, lrs)
+    new_aux = D.update_max_radii(state.aux, out["radii"], out["visibility_filter"])
+    new_aux = D.add_densification_stats(new_aux, probe.grad, out["visibility_filter"])
+    return dict(params=new_params, opt=new_opt, aux=new_aux, loss=loss.detach(), grads=grads)
+
+
 class ObjectTrainer:
-    """Single-object text-to-3D trainer (first slice: the FPS step)."""
+    """Single-object text-to-3D trainer."""
 
     def __init__(self, cfg, guidance: mtsd.MTSD | None = None,
                  state: GaussianState | None = None, obj_id: str | None = None,
@@ -267,6 +309,7 @@ class ObjectTrainer:
         self.rng = np.random.default_rng(cfg.seed)
         self.cameras_extent = self.pose_args.default_radius
         self.step = 0
+        self.rec_count = 0
         self.guidance = guidance
         self.last_stats: dict = {}
         par = getattr(cfg, "parallelParams", None)
@@ -289,6 +332,9 @@ class ObjectTrainer:
                                             device=self.device)
 
     def prepare_train(self):
+        if getattr(self.guidance_opt, "controlnet_model_key", None):
+            raise NotImplementedError(
+                "the depth ControlNet is not ported yet: ROADMAP queue A, ControlNet")
         if self.guidance is None:
             self.guidance = mtsd.make_tiny_guidance(self.guidance_opt, device=self.device)
         self.embeddings = calc_text_embeddings(self.guidance, self.obj.text,
@@ -331,7 +377,8 @@ class ObjectTrainer:
             cameras = [S.load_random_cam(self.rng, self.pose_args, ssaa=True)
                        for _ in range(c_batch)]
 
-        text_emb, _ = assemble_text_embeddings(self.embeddings, cameras)
+        text_emb, self.last_vds = assemble_text_embeddings(self.embeddings, cameras)
+        self.last_cameras = cameras
         as_latent = self.step < optim.geo_iter or self.rng.random() < optim.as_latent_ratio
         g = self.guidance
         ladder = [int(t) for t in g.sample_ladder(min(self.step / iters, 1.0))]
@@ -374,16 +421,200 @@ class ObjectTrainer:
         if self.step < optim.densify_until_iter:
             if (self.step >= optim.densify_from_iter
                     and self.step % optim.densification_interval == 0):
-                raise NotImplementedError(
-                    "densify/prune is not ported yet: ROADMAP queue A, slice 2")
+                n0 = num_active(self.state)
+                self._densify(optim, 20 if self.step > optim.opacity_reset_interval else None)
+                n1 = num_active(self.state)
+                logger.debug("densify/prune: %d -> %d", n0, n1)
+                if n1 > optim.max_point_number and self.step < 1500:
+                    self.gaussian_filtering(self._mode_arg("prune_percent", 0.5))
+                self._maybe_grow_capacity()
             if self.step % optim.opacity_reset_interval == 0:
-                raise NotImplementedError(
-                    "opacity reset is not ported yet: ROADMAP queue A, slice 2")
+                self.state = D.reset_opacity(self.state)
+
         if self.step == 1500:
-            raise NotImplementedError(
-                "gaussian_filtering (importance prune) is not ported yet: "
-                "ROADMAP queue A, slice 2")
+            self.gaussian_filtering(0.3)
+
+        # no try/except: a failing kernel in the viz must not be hidden
         if self.step % self.guidance_opt.vis_interval == 0:
-            raise NotImplementedError(
-                "guidance visualization is not ported yet: ROADMAP queue A, slice 3")
+            self.save_guidance_viz(self.last_cameras[0], self.last_vds)
         return float(loss)
+
+    def _densify(self, optim, size_thr):
+        """densify_and_prune with split samples seeded from the host
+        generator, consumed where the JAX trainer draws its key."""
+        seed = int(self.rng.integers(0, 2**31))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        eps = torch.randn((self.state.capacity, 2, 3), generator=gen, device=self.device)
+        self.state = D.densify_and_prune(self.state, eps, optim.densify_grad_threshold, 0.005,
+                                         self.cameras_extent, size_thr, optim.percent_dense)
+
+    @torch.no_grad()
+    def save_guidance_viz(self, camera, vds):
+        """Per-interval guidance debug grid (reference:
+        multitime_sd_utils.py:291-337)."""
+        g = self.guidance
+        out = object_render(self.state, camera, bg_color=self._bg_color(), test=True)
+        images = out["image"][None]
+        latents = mtsd.encode_images(
+            g.mods, images, g.next_normal(g.latent_shape(1, *images.shape[-2:])))
+        ladder = g.sample_ladder(min(self.step / self.optim.iterations, 1.0))
+        noise = g.next_noise(tuple(latents.shape))
+        text_emb, _ = assemble_text_embeddings(self.embeddings, [camera])
+        scores = mtsd.ladder_scores(g.mods, latents, noise, ladder, text_emb)
+        grad = mtsd.csd_grad(g.mods, scores, self.guidance_opt.guidance_scale)
+        rows = mtsd.guidance_viz_grid(g.mods, images, out["depth"], out["alpha"], latents,
+                                      grad, scores, self.guidance_opt.guidance_scale)
+        save_image_grid(str(self.vis_path / f"{self.id}_iter_{self.step}_vd_{'_'.join(vds)}.jpg"),
+                        rows)
+
+    def _mode_arg(self, name, default):
+        ma = self.cfg.mode_args or {}
+        return ma.get(name, default) if isinstance(ma, dict) else default
+
+    def _maybe_grow_capacity(self):
+        st = self.state
+        if num_active(st) > 0.9 * st.capacity and st.capacity < self.optim.max_point_number:
+            new_cap = min(st.capacity * 2, self.optim.max_point_number)
+            logger.info("growing capacity %d -> %d", st.capacity, new_cap)
+            self.state = resize(st, new_cap)
+
+    def gaussian_filtering(self, prune_percent):
+        """Importance scoring over 48 sphere cameras + percentile prune
+        (reference: scene_gaussian.py:1046-1103)."""
+        self.state = importance_filter(
+            self.state, self.rng, self.pose_args, bg_color=self._bg_color(),
+            prune_percent=prune_percent, v_pow=self._mode_arg("v_pow", 0.1),
+            prune_decay=self._mode_arg("prune_decay", 0.8))
+
+    def refine_phase(self):
+        """Reconstructive generation (reference refine_step + train() phase
+        2, object_trainer.py:464-738): pseudo-GT from the 36-view reco rig
+        once, then L2*100 per-view updates."""
+        optim = self.recon_optim
+        g = self.guidance
+        g.stage_range = (140, 200)
+        g.jump_range = (75, 150)
+        # fresh optimizer step count (the reference re-runs training_setup)
+        self.state = dataclasses.replace(
+            self.state, opt=AdamState(0, self.state.opt.mu, self.state.opt.nu))
+        cams = S.load_reco_cam(self.pose_args, (4, 12, 14, 6), (100, 85, 75, 55), scale=0.9)
+        gt_size = len(cams)
+        h, w = self.pose_args.image_h, self.pose_args.image_w
+        gts = []
+        with torch.no_grad():
+            for j in range(0, gt_size // 4 * 4, 4):
+                chunk = cams[j:j + 4]
+                imgs = torch.stack([object_render(self.state, cam, bg_color=self._bg_color(),
+                                                  test=True)["image"] for cam in chunk])
+                text_emb, _ = assemble_text_embeddings(self.embeddings, chunk)
+                ladder = g.sample_ladder(0.0)
+                lat_shape = g.latent_shape(len(chunk), h, w)
+                noise = g.next_noise(lat_shape)
+                latents = mtsd.encode_images(g.mods, imgs, g.next_normal(lat_shape))
+                scores = mtsd.ladder_scores(g.mods, latents, noise, ladder, text_emb)
+                gts.extend(mtsd.pseudo_gt_images(g.mods, scores,
+                                                 self.guidance_opt.guidance_scale).unbind(0))
+        self.gt_images = gts
+
+        cam_t = camera_tensors(cams, self.device)
+        rec_batch = gt_size // 2
+        densify_until = int(optim.iterations * rec_batch * 0.8)
+        for it in range(optim.iterations):
+            self.step += 1
+            if self.step % 300 == 0:
+                self.state = self.state.one_up_sh_degree()
+            lrs = group_lrs(optim, self.state.spatial_lr_scale, self.step)
+            for i in range(rec_batch):
+                self.rec_count += 1
+                st = self.state
+                res = recon_step(st, cam_t[i], self.gt_images[i], lrs, width=w, height=h,
+                                 capacity=self.cap_ctrl.capacity(st.capacity),
+                                 active_deg=st.active_sh_degree)
+                st.params, st.opt, st.aux = res["params"], res["opt"], res["aux"]
+                self.last_stats = dict(recon_loss=float(res["loss"]))
+                if self.rec_count % 100 == 0:
+                    # recon-pair eval render (reference object_trainer.py:654-656)
+                    with torch.no_grad():
+                        out = object_render(self.state, cams[i], bg_color=self._bg_color(),
+                                            test=True)
+                    save_image_grid(str(self.vis_path / f"recon_{self.rec_count}.jpg"),
+                                    [torch.clamp(out["image"], 0, 1).cpu().numpy(),
+                                     self.gt_images[i].cpu().numpy()])
+                if self.rec_count < densify_until:
+                    if self.rec_count % optim.densification_interval == 0:
+                        self._densify(optim, 20 if self.rec_count > optim.opacity_reset_interval
+                                      else None)
+                        if num_active(self.state) > optim.max_point_number and it < 25:
+                            self.gaussian_filtering(self._mode_arg("prune_percent", 0.5))
+                        self._maybe_grow_capacity()
+                    if self.rec_count % optim.opacity_reset_interval == 0:
+                        self.state = D.reset_opacity(self.state)
+
+    @torch.no_grad()
+    def video_inference(self, tag: str):
+        """Orbit rgb + depth videos (reference object_trainer.py:81-115)."""
+        frames, depths, alphas = [], [], []
+        for cam in S.load_clip_cam(self.pose_args):
+            out = object_render(self.state, cam, bg_color=(1, 1, 1), test=True)
+            img = torch.clamp(out["image"], 0, 1).cpu().numpy()
+            frames.append((np.transpose(img, (1, 2, 0)) * 255).astype(np.uint8))
+            # un-premultiply, as the JAX package does with the disparity
+            a = out["alpha"].cpu().numpy()
+            depths.append(out["depth"].cpu().numpy() / np.maximum(a, 1e-6))
+            alphas.append(a)
+        # one normalization window for the whole orbit
+        fg = [d[a > 0.5] for d, a in zip(depths, alphas) if (a > 0.5).any()]
+        lo = min((f.min() for f in fg), default=0.0)
+        hi = max((f.max() for f in fg), default=1.0) + 1e-6
+        dframes = [np.repeat((np.clip((d - lo) / (hi - lo), 0, 1) * (a > 0.1) * 255)
+                             .astype(np.uint8)[..., None], 3, -1)
+                   for d, a in zip(depths, alphas)]
+        write_video(str(self.vis_path / f"video_rgb_{self.id}_{tag}.mp4"), frames)
+        write_video(str(self.vis_path / f"video_depth_{self.id}_{tag}.mp4"), dframes)
+
+    def save_model(self, tag):
+        path = self.ckpt_path / f"{self.id}_{tag}_model.ply"
+        save_splat_ply(str(path), self.state)
+        logger.info("saved %s", path)
+
+    def _resume_intermediate(self):
+        """Restore the highest `<id>_<step>_model.ply` snapshot and
+        fast-forward (reference ckpt_checker, scene_gaussian.py:53-80)."""
+        best, best_path = 0, None
+        for f in os.listdir(self.ckpt_path):
+            parts = f.split("_")
+            if (f.endswith("_model.ply") and parts[0] == self.id
+                    and parts[1].isdigit() and int(parts[1]) > best):
+                best, best_path = int(parts[1]), self.ckpt_path / f
+        if best_path is not None:
+            logger.info("resuming %s from step %d", self.id, best)
+            n = max(_parse_ply(str(best_path))[1].shape[0], 1)
+            self.state = load_splat_ply(str(best_path),
+                                        capacity=min(4 * n, self.optim.max_point_number),
+                                        device=self.device)
+            self.step = best
+
+    def train(self, video_every: int = 500, make_videos: bool = False):
+        """The whole object: FPS phase (resumable), snapshot, refine,
+        videos, final PLY. A finished object (its final PLY exists) is
+        loaded and skipped."""
+        if self._mode_arg("export_mesh", False):
+            raise NotImplementedError(
+                "mesh export is not ported yet: ROADMAP queue A, models/mesh.py")
+        final = self.ckpt_path / f"{self.id}_final_model.ply"
+        if final.exists():
+            logger.info("object %s already trained; skipping", self.id)
+            self.state = load_splat_ply(str(final), device=self.device)
+            return
+        self.prepare_train()
+        self._resume_intermediate()
+        if not self.recon_optim.only_recon_stage:
+            for _ in range(self.step, self.optim.iterations):
+                self.train_step()
+                if make_videos and self.step % video_every == 0:
+                    self.video_inference(str(self.step))
+            self.save_model(str(self.step))
+        self.refine_phase()
+        if make_videos:
+            self.video_inference("final")
+        self.save_model("final")

@@ -1,6 +1,7 @@
 """Guidance parity: the port's tiny UNet and VAE encoder/decoder, with the
 JAX tiny stack's weights carried across by `convert.py`, against the
-Flax modules; the ladder, the CSD gradient and the prompt embeddings.
+Flax modules; the ladder, the CSD gradient, the decoded pseudo ground
+truth, the guidance viz grid and the prompt embeddings.
 
 Tolerances: module outputs and ladder scores atol 1e-4 (float32 on both
 sides; convolution and reduction orders differ); prompt embeddings and
@@ -115,3 +116,33 @@ def test_prompt_embeddings_and_host_rng_bit_equal():
     for rate in [0.0, 0.3, 1.0]:
         np.testing.assert_array_equal(tg.sample_ladder(rate), jg.sample_ladder(rate))
         assert tg.should_flip() == jg.should_flip()
+
+
+def test_decode_pseudo_gt_and_viz_match(stacks):
+    jg, mods = stacks
+    rng = np.random.default_rng(6)
+    b, h = 2, 8
+    lat = rng.standard_normal((b, h, h, 4)).astype(np.float32)
+    noise = rng.standard_normal((b, h, h, 4)).astype(np.float32)
+    text = rng.standard_normal((3 * b, 4, 32)).astype(np.float32)
+    ladder = [160, 330]
+    np.testing.assert_allclose(tm.decode_latents(mods, torch.from_numpy(lat)).numpy(),
+                               np.asarray(jm.decode_latents(jg.mods, jnp.asarray(lat))),
+                               atol=ATOL)
+    jsc = jm.ladder_scores(jg.mods, jnp.asarray(lat), jnp.asarray(noise),
+                           jnp.asarray(ladder, jnp.int32), jnp.asarray(text), n_rungs=2)
+    tsc = tm.ladder_scores(mods, torch.from_numpy(lat), torch.from_numpy(noise), ladder,
+                           torch.from_numpy(text))
+    np.testing.assert_allclose(tm.pseudo_gt_images(mods, tsc, 7.5).numpy(),
+                               np.asarray(jm.pseudo_gt_images(jg.mods, jsc, 7.5)), atol=ATOL)
+    images = rng.random((b, 3, 2 * h, 2 * h)).astype(np.float32)
+    depth, alpha = rng.random((2, 2 * h, 2 * h)).astype(np.float32)
+    jgrad = jm.csd_grad(jg.mods, jsc, 7.5)
+    trows = tm.guidance_viz_grid(mods, torch.from_numpy(images), torch.from_numpy(depth),
+                                 torch.from_numpy(alpha), torch.from_numpy(lat),
+                                 torch.from_numpy(np.asarray(jgrad)), tsc, 7.5)
+    jrows = jm.guidance_viz_grid(jg.mods, jnp.asarray(images), jnp.asarray(depth),
+                                 jnp.asarray(alpha), jnp.asarray(lat), jgrad, jsc, 7.5)
+    assert len(trows) == len(jrows) == 8
+    for i, (a, w) in enumerate(zip(trows, jrows)):
+        np.testing.assert_allclose(a, w, atol=ATOL, err_msg=f"row {i}")

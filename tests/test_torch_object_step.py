@@ -200,6 +200,10 @@ def test_host_sampling_matches_jax_trainer(tmp_path):
 
 
 def test_train_step_runs_and_unported_branches_raise(tmp_path):
+    """train_step runs, and the branches that raised before object
+    generation was ported now run: densify/prune, opacity reset, the
+    guidance viz and the step-1500 importance filter."""
+    from dreamscene_tpu_torch.models.gaussians import num_active
     from dreamscene_tpu_torch.utils.config import ObjectsParamsGroups as TCfg
 
     cfg = tiny_cfg(TCfg())
@@ -209,7 +213,19 @@ def test_train_step_runs_and_unported_branches_raise(tmp_path):
     assert np.isfinite(tr.train_step())
     assert not torch.equal(tr.state.params["xyz"], xyz0)
     assert tr.last_stats["n_entries"] > 0
+    assert tr.state.aux["denom"].sum() > 0
     cfg.optimizationParams.densify_from_iter = 1
     cfg.optimizationParams.densification_interval = 2
-    with pytest.raises(NotImplementedError, match="densify"):
-        tr.train_step()
+    cfg.optimizationParams.opacity_reset_interval = 2
+    cfg.guidanceParams.vis_interval = 2
+    assert np.isfinite(tr.train_step())
+    assert float(tr.state.aux["denom"].sum()) == 0.0          # densify_and_prune ran
+    assert float(tr.state.get_opacity.max()) <= 0.01 + 1e-6    # opacity reset ran
+    assert list((tr.vis_path).glob("obj1_iter_2_vd_*"))         # guidance viz ran
+    n0 = num_active(tr.state)
+    tr.step = 1499
+    cfg.optimizationParams.iterations = 1500
+    cfg.optimizationParams.densify_from_iter = 1 << 30
+    cfg.optimizationParams.opacity_reset_interval = cfg.guidanceParams.vis_interval = 7
+    assert np.isfinite(tr.train_step())                         # step 1500: filter
+    assert num_active(tr.state) < n0
