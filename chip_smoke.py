@@ -13,10 +13,13 @@ Phases (any failure exits non-zero; nothing is caught):
      within 1e-4 of max|g| and bit-identical across two runs. Times of
      kernel and plain version at full width;
   2b. K4 (flash attention forward, dK/dV, dQ) against its plain versions
-     at every shape the main path gives it (bf16) plus one f32 case:
-     f32 at atol 2e-6 (forward) / 5e-6 (gradients), bf16 at max|d| <=
-     2^-7 max|plain|; times of kernels, plain versions, SDPA (forward and
-     forward+backward) and the matmul + f32-softmax module path;
+     at every shape the main path gives it (bf16, the tensor-core variant
+     of the forward and dK/dV kernels) plus one f32 case (the CUDA-core
+     variant), and the forward once more on the attention module's
+     strided views of [b, n, h*d] projections: f32 at atol 2e-6 (forward)
+     / 5e-6 (gradients), bf16 at max|d| <= 2^-7 max|plain|; times of
+     kernels, plain versions, SDPA (forward and forward+backward) and the
+     matmul + f32-softmax module path;
   3. the slice: ObjectTrainer at BASELINE.json config #2 width (50K
      points, sh_degree 2, 512^2, C_batch 4, SD2.1-architecture UNet + full
      VAE with seeded random weights, 77 tokens, densify off), DS_FLASH_ATTN
@@ -24,7 +27,8 @@ Phases (any failure exits non-zero; nothing is caught):
      (K1-K3 once per camera, K4 never), one step under torch.profiler
      (device time by phase and kernel); then the same 7 steps with
      DS_FLASH_ATTN=1, timed, with the K4 launches checked against the
-     ladder lengths;
+     ladder lengths and every forward and dK/dV launch counted as the
+     tensor-core variant, and one such step under torch.profiler;
   3b. ObjectTrainer.train(make_videos=True) at config #2 width with
      DS_FLASH_ATTN=1 and configs/objects/sample.yaml's cadences, from step
      1496 to 1502 (densify/prune, opacity reset, 48-view filter, SH
@@ -322,14 +326,22 @@ def check_flash(label, shape, dtype, timing=True):
     g_k = fa.flash_bwd(q, k, v, o_p, l_p, m_p, do, scale)
     di = (o_p.float() * do.float()).sum(-1)
     g_p = fa.flash_attention_bwd_plain(q, k, v, l_p, m_p, do, di, scale)
+    # the forward on strided views, as sd_modules.Attention passes them:
+    # [b, h, n, d] views of [b, n, h*d] projections; o comes back so that
+    # transpose(1, 2).reshape(b, n, h*d) is a view
+    b_, h_, n_, d_ = shape
+    q_s, k_s, v_s = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+    assert h_ == 1 or not q_s.is_contiguous()
+    o_s = fa.flash_fwd(q_s, k_s, v_s, scale)[0]
+    assert o_s.transpose(1, 2).reshape(b_, n_, h_ * d_).data_ptr() == o_s.data_ptr()
     torch.cuda.synchronize()
     errs, ok = {}, True
-    for name, a, b in (("o", o_k, o_p), ("dq", g_k[0], g_p[0]), ("dk", g_k[1], g_p[1]),
-                       ("dv", g_k[2], g_p[2])):
+    for name, a, b in (("o", o_k, o_p), ("o_strided", o_s, o_p), ("dq", g_k[0], g_p[0]),
+                       ("dk", g_k[1], g_p[1]), ("dv", g_k[2], g_p[2])):
         err = float((a.float() - b.float()).abs().max())
         scale_ref = float(b.float().abs().max())
         if dtype == torch.float32:
-            tol = 2e-6 if name == "o" else 5e-6
+            tol = 2e-6 if name.startswith("o") else 5e-6
         else:
             tol = 2.0**-7 * scale_ref
         errs[name] = err
@@ -338,14 +350,18 @@ def check_flash(label, shape, dtype, timing=True):
             f"(tol {tol:.3g}, max|plain| {scale_ref:.3g})")
     assert ok, f"{label}: K4 kernel differs from its plain version: {errs}"
     assert torch.isfinite(l_k).all() and torch.isfinite(m_k).all()
-    row = {"errs": {"flash_fwd": errs["o"], "flash_bwd_dkv": max(errs["dk"], errs["dv"]),
-                    "flash_bwd_dq": errs["dq"]}}
+    variant = {"flash_fwd": fa.fwd_config(dtype, shape[3])["design"],
+               "flash_bwd_dkv": fa.dkv_config(dtype, shape[3])["design"],
+               "flash_bwd_dq": "scalar"}
+    row = {"errs": {"flash_fwd": max(errs["o"], errs["o_strided"]),
+                    "flash_bwd_dkv": max(errs["dk"], errs["dv"]), "flash_bwd_dq": errs["dq"]},
+           "variant": variant}
     if not timing:
         return row
     o, l, m = torch.empty_like(q), torch.empty_like(l_p), torch.empty_like(m_p)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     big = shape[3] > 128 or shape[0] * shape[1] > 20
-    reps, preps = (3, 2) if big else (10, 3)
+    reps, preps = (5, 2) if big else (10, 3)
     t = {"flash_fwd": cuda_time(lambda: fa.launch_fwd(q, k, v, o, l, m, scale), reps),
          "flash_bwd_dkv": cuda_time(lambda: fa.launch_bwd_dkv(q, k, v, l_p, m_p, do, di, dk, dv,
                                                                scale), reps),
@@ -373,15 +389,18 @@ def check_flash(label, shape, dtype, timing=True):
     lib = {"sdpa_fwd": cuda_time(sdpa, 10), "sdpa_fwd_bwd": cuda_time(sdpa_fb, 10),
            "naive_fwd": cuda_time(naive, reps), "naive_fwd_bwd": cuda_time(naive_fb, reps)}
     work = k4_flops_bytes(shape, dtype)
+    tflops = {kk: work[kk][0] / (ms * 1e-3) / 1e12 for kk, ms in t.items()}
     row.update(ms=t, plain_ms={"flash_fwd": plain_fwd, "flash_bwd_dkv": plain_bwd,
                                "flash_bwd_dq": plain_bwd},
                library_ms={"flash_fwd": lib["sdpa_fwd"],
                            "flash_bwd_dkv": lib["sdpa_fwd_bwd"] - lib["sdpa_fwd"],
                            "flash_bwd_dq": lib["sdpa_fwd_bwd"] - lib["sdpa_fwd"]},
                module_path_ms={"fwd": lib["naive_fwd"], "fwd_bwd": lib["naive_fwd_bwd"]},
+               achieved_tflops=tflops,
                bound={kk: bound(f, nb, dtype) for kk, (f, nb) in work.items()})
     log(f"[k4] {label} times: " + json.dumps(
-        {"kernel_ms": t, "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd, **lib,
+        {"kernel_ms": t, "variant": variant, "achieved_tflops": tflops,
+         "plain_fwd_ms": plain_fwd, "plain_bwd_ms": plain_bwd, **lib,
          "bound_ms": {kk: v[0] for kk, v in row["bound"].items()}}))
     return row
 
@@ -427,25 +446,30 @@ def run_slice():
     assert all(torch.isfinite(v).all() for v in tr.state.params.values())
     n_steps = N_STEPS_WARM + N_STEPS_TIMED
     expect = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
-    expect.update({k: 0 for k in K4})
+    expect.update({k: 0 for k in K4 + kernels.VARIANT_NAMES})
     assert counts == expect, (counts, expect)
     log(f"[slice] DS_FLASH_ATTN unset: median {ms:.1f} ms/step, xyz moved {moved:.3g}, "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches {counts}, "
         f"card {torch.cuda.get_device_name(0)}")
-    profile_step(tr, ms)
+    profile_step(tr, ms, "profile")
 
     os.environ["DS_FLASH_ATTN"] = "1"
     torch.cuda.reset_peak_memory_stats()
     ms_f, counts_f, rungs = fps_steps(tr, "slice+flash")
+    peak_f = torch.cuda.max_memory_allocated() / 2**30
+    profile_step(tr, ms_f, "profile_flash")
     os.environ.pop("DS_FLASH_ATTN")
     # 10 self-attention layers at n >= 1024 per UNet pass (R rungs -> R+1
     # passes), one VAE encode per step, one encoder backward per step
     expect_f = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
     expect_f.update(flash_fwd=sum(10 * (r + 1) + 1 for r in rungs),
                     flash_bwd_dkv=n_steps, flash_bwd_dq=n_steps)
+    # the whole path computes in bf16: every forward and dK/dV launch must
+    # have taken the tensor-core variant
+    expect_f.update({"flash_fwd.tc": expect_f["flash_fwd"], "flash_bwd_dkv.tc": n_steps})
     assert counts_f == expect_f, (counts_f, expect_f)
     log(f"[slice] DS_FLASH_ATTN=1: median {ms_f:.1f} ms/step (unset: {ms:.1f}), rungs {rungs}, "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches {counts_f}")
+        f"peak mem {peak_f:.1f} GiB, launches {counts_f}")
     log(json.dumps({"slice_flash": {"ms_per_step_median": ms_f, "rungs": rungs,
                                     "launches": counts_f}}))
     return counts
@@ -489,6 +513,7 @@ def run_train():
     from dreamscene_tpu_torch.guidance.sd_modules import VAEConfig, sd21_unet_config
     from dreamscene_tpu_torch.models.gaussians import num_active
     from dreamscene_tpu_torch.models.ply import load_splat_ply
+    from dreamscene_tpu_torch.ops import flash_attention as fa
     from dreamscene_tpu_torch.training import object_trainer as OT
     from dreamscene_tpu_torch.utils.config import load_config
 
@@ -546,6 +571,14 @@ def run_train():
         setattr(tr, name, timed(name, getattr(tr, name)))
     recon_step = OT.recon_step
     OT.recon_step = timed("recon_step", recon_step)
+    fwd_shapes, launch_fwd = {}, fa.launch_fwd
+
+    def count_fwd_shape(q, *a):
+        key = str(list(q.shape))
+        fwd_shapes[key] = fwd_shapes.get(key, 0) + 1
+        return launch_fwd(q, *a)
+
+    fa.launch_fwd = count_fwd_shape
     n0 = num_active(tr.state)
     os.environ["DS_FLASH_ATTN"] = "1"
     torch.cuda.reset_peak_memory_stats()
@@ -555,6 +588,7 @@ def run_train():
         tr.train(make_videos=True)
     finally:
         OT.recon_step = recon_step
+        fa.launch_fwd = launch_fwd
         os.environ.pop("DS_FLASH_ATTN")
         for h in hooks:
             h.remove()
@@ -577,20 +611,25 @@ def run_train():
     assert calls["unet"] == sum(r + 1 for r in rungs), (calls, rungs)
     expect = {"flash_fwd": 10 * calls["unet"] + calls["vae_encoder"] + calls["vae_decoder"],
               "flash_bwd_dkv": len(losses), "flash_bwd_dq": len(losses)}
+    expect.update({"flash_fwd.tc": expect["flash_fwd"], "flash_bwd_dkv.tc": len(losses)})
     assert all(counts[k] == v for k, v in expect.items()), (counts, expect, calls)
     assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES), counts
+    assert sum(fwd_shapes.values()) == counts["flash_fwd"], fwd_shapes
     log(f"[train] train() {wall:.1f}s wall; losses {losses}; active {n0} -> "
         f"{actives} -> final {n_final}; rungs {rungs}; module calls {calls}; "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {counts}")
     log(json.dumps({"train": {"wall_s": wall, "parts_s": {k: {"calls": n, "s": sec}
                                                           for k, (n, sec) in parts.items()},
-                              "launches": counts, "module_calls": calls, "rungs": rungs,
+                              "launches": counts, "flash_fwd_by_shape": fwd_shapes,
+                              "module_calls": calls, "rungs": rungs,
                               "active": {"start": n0, **actives, "final": n_final},
                               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}}))
     return counts
 
 
-KERNEL_BUCKETS = (("composite_bwd_kernel", "K2 composite_bwd"),
+KERNEL_BUCKETS = (("flash_fwd", "K4 flash_fwd"), ("flash_bwd_dkv", "K4 flash_bwd_dkv"),
+                  ("flash_bwd_dq", "K4 flash_bwd_dq"),
+                  ("composite_bwd_kernel", "K2 composite_bwd"),
                   ("composite_fwd_kernel", "K1 composite_fwd"),
                   ("expand_kernel", "K3 expand"),
                   ("fprop", "convolution"), ("dgrad", "convolution"),
@@ -608,8 +647,9 @@ KERNEL_BUCKETS = (("composite_bwd_kernel", "K2 composite_bwd"),
                   ("reduce", "reduction"))
 
 
-def profile_step(tr, untraced_ms):
-    """One more train_step under torch.profiler: device busy time by phase
+def profile_step(tr, untraced_ms, tag):
+    """One more train_step under torch.profiler (printed as the JSON line
+    `tag`; DS_FLASH_ATTN as the caller left it): device busy time by phase
     and by kernel family, and the device's idle share of the untraced
     median step (the traced step's own wall time is inflated by the
     profiler). A phase's time is the kernel time that starts inside its
@@ -647,7 +687,7 @@ def profile_step(tr, untraced_ms):
         b = next((lab for pat, lab in KERNEL_BUCKETS if pat in name.lower()), "other")
         buckets[b] = buckets.get(b, 0.0) + ms
     top = sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:12]
-    log(json.dumps({"profile": {
+    log(json.dumps({tag: {
         "traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
         "untraced_step_ms": untraced_ms, "device_idle_share": 1.0 - busy / untraced_ms,
         "phases_device_busy_ms": phases, "kernel_families_ms": buckets,
@@ -747,7 +787,8 @@ def main():
         rows = r or rows
     for k in K4:
         r = k4[K4_ROW[k]]
-        rows[k] = dict(ms=r["ms"][k], plain_ms=r["plain_ms"][k], library_ms=r["library_ms"][k],
+        rows[k] = dict(ms=r["ms"][k], variant=r["variant"][k], plain_ms=r["plain_ms"][k],
+                       library_ms=r["library_ms"][k],
                        bound_ms=r["bound"][k][0], bound_by=r["bound"][k][1])
 
     counts = run_slice()
@@ -758,7 +799,8 @@ def main():
     for k in kernels.KERNEL_NAMES:
         src, rep = SOURCES[k]
         r = rows[k]
-        table.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
+        table.append({"name": k, "route": "cuda", "variant": r.get("variant", "scalar"),
+                      "source": src, "replaces": rep,
                       "launches": counts[k], "max_abs_err": errs[k], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})

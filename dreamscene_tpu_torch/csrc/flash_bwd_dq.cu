@@ -49,8 +49,8 @@ __global__ void __launch_bounds__(Cfg<D>::NT) flash_bwd_dq_kernel(
   const size_t hrow = (size_t)blockIdx.y * n;
   const int q0 = blockIdx.x * BQ;
 
-  load_tile<T, D, NT>(sq, q + head + (size_t)q0 * d, BQ, d, tid);
-  load_tile<T, D, NT>(sdo, dout + head + (size_t)q0 * d, BQ, d, tid);
+  load_tile<T, D, NT>(sq, q + head + (size_t)q0 * d, BQ, d, (size_t)d, tid);
+  load_tile<T, D, NT>(sdo, dout + head + (size_t)q0 * d, BQ, d, (size_t)d, tid);
   if (tid < BQ) {
     sm[tid] = m[hrow + q0 + tid];
     sil[tid] = 1.f / l[hrow + q0 + tid];
@@ -60,8 +60,8 @@ __global__ void __launch_bounds__(Cfg<D>::NT) flash_bwd_dq_kernel(
   zero(gq);
   for (int k0 = 0; k0 < n; k0 += BK) {
     __syncthreads();
-    load_tile<T, D, NT>(sk, k + head + (size_t)k0 * d, BK, d, tid);
-    load_tile<T, D, NT>(sv, v + head + (size_t)k0 * d, BK, d, tid);
+    load_tile<T, D, NT>(sk, k + head + (size_t)k0 * d, BK, d, (size_t)d, tid);
+    load_tile<T, D, NT>(sv, v + head + (size_t)k0 * d, BK, d, (size_t)d, tid);
     __syncthreads();
     float s[SI][SJ], dp[SI][SJ];
     zero(s);
@@ -84,7 +84,7 @@ __global__ void __launch_bounds__(Cfg<D>::NT) flash_bwd_dq_kernel(
     mm_acc<SI, OJ, TY, BK>(pq, sds, PS, 1, sk, S, 1, ty, tx);
     add_to(gq, pq);
   }
-  store_rows<T, SI, OJ, TY>(dq + head + (size_t)q0 * d, gq, d, ty, tx);
+  store_rows<T, SI, OJ, TY>(dq + head + (size_t)q0 * d, gq, d, (size_t)d, ty, tx);
 }
 
 template <typename T, int D>

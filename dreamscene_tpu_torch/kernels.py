@@ -10,7 +10,9 @@ ctypes: every pointer and the stream pass as c_void_p, every launcher
 returns cudaGetLastError() and `check` raises on a non-zero code.
 
 `COUNTS` holds one launch counter per kernel; each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else. The kernels that have a
+tensor-core and a CUDA-core variant also count the launches that took the
+tensor-core variant (`VARIANT_NAMES`).
 """
 
 from __future__ import annotations
@@ -35,10 +37,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 COUNTS: collections.Counter = collections.Counter()
 KERNEL_NAMES = ("expand_entries", "composite_fwd", "composite_bwd", "flash_fwd",
                 "flash_bwd_dkv", "flash_bwd_dq")
+VARIANT_NAMES = ("flash_fwd.tc", "flash_bwd_dkv.tc")
 
 _LIB = None
 _LOCK = threading.Lock()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)   # three element strides: batch, head, row
 
 # launcher name -> ctypes argument types (must match csrc/*.cu)
 _SIGNATURES = {
@@ -64,13 +68,15 @@ _SIGNATURES = {
     ],
     "ds_flash_fwd": [
         _P, _P, _P, _P, _P, _P,                # q k v o l m
-        _I, _I, _I, _F, _I,                    # bh n d scale bf16
+        _I, _I, _I, _I,                        # b h n d
+        _S, _S, _S, _S,                        # strides of q k v o
+        _F, _I, _I,                            # scale bf16 tc
         _P,                                    # stream
     ],
     "ds_flash_bwd_dkv": [
         _P, _P, _P, _P, _P, _P, _P,            # q k v l m dout di
         _P, _P,                                # dk dv
-        _I, _I, _I, _F, _I,                    # bh n d scale bf16
+        _I, _I, _I, _F, _I, _I,                # bh n d scale bf16 tc
         _P,                                    # stream
     ],
     "ds_flash_bwd_dq": [
@@ -159,7 +165,7 @@ def check(code: int, name: str) -> None:
 
 def reset_counts() -> None:
     COUNTS.clear()
-    for k in KERNEL_NAMES:
+    for k in KERNEL_NAMES + VARIANT_NAMES:
         COUNTS[k] = 0
 
 

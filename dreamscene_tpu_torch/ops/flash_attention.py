@@ -19,8 +19,7 @@ with the JAX kernels' numeric contract:
     in both.
 Limits (the JAX kernel's, raised on): n a multiple of 128; head dim at
 most 128, or a multiple of 128. The port's own upper bound on d is
-MAX_HEAD_DIM = 512 (the kernels stage float32 tiles of width 512 in
-shared memory).
+MAX_HEAD_DIM = 512 (the kernels' widest head-dim bucket).
 
 CUDA tensors launch the hand-written kernels (csrc/flash_fwd.cu,
 flash_bwd_dkv.cu, flash_bwd_dq.cu), which tile differently from the TPU
@@ -29,6 +28,20 @@ exactly: bq = bk = the first of 512/256/128 dividing n
 (sd_flax.py:130), one step without the running rescale when that block
 is all of n.
 
+Which kernel variant a CUDA tensor takes is decided here, by type and
+shape alone (`kernel_variant`, `fwd_config`, `dkv_config`): bfloat16
+operands with a head dim that is a multiple of 16 take the tensor-core
+kernels (wgmma or mma.sync on bfloat16 tiles; "tc"); float32 operands, for which
+tensor cores have no product at float32 accuracy, and other bfloat16 head
+dims take the CUDA-core kernels ("scalar"). The dQ kernel has the scalar
+variant only. Nothing is caught: a launch that fails raises.
+
+The forward takes q, k, v as any [b, h, n, d] views with unit stride in d
+(the modules pass transposed views of their [b, n, h*d] projections) and
+returns o laid out as [b, n, h, d], so `o.transpose(1, 2).reshape(b, n,
+h*d)` is a view too. The backward kernels want contiguous heads; the
+autograd Function copies only the tensors that are not (none at h = 1).
+
 `use_flash_attention(n, m, device)` is the gate of sd_flax.py:102-117:
 DS_FLASH_ATTN == "1" (read at call time), n == m, n >= 1024, n % 128 == 0,
 and a CUDA device where the JAX package asks for a TPU.
@@ -36,6 +49,7 @@ and a CUDA device where the JAX package asks for a TPU.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
@@ -43,7 +57,14 @@ import torch
 from dreamscene_tpu_torch import kernels
 
 MAX_HEAD_DIM = 512
+SMEM_LIMIT = 232_448   # dynamic shared memory one CTA can have on an H100
 _DTYPES = (torch.float32, torch.bfloat16)
+_BUCKETS = (64, 128, 256, 512)
+# scalar kernels' tiles per head-dim bucket: (threads, bq, bk), csrc Cfg<D>
+_SCALAR_FWD = {64: (128, 64, 64), 128: (128, 32, 64), 256: (256, 32, 32), 512: (256, 16, 32)}
+_SCALAR_DKV = {64: (128, 64, 64), 128: (128, 32, 32), 256: (256, 32, 32), 512: (256, 16, 16)}
+# tensor-core dK/dV tiles per bucket: (threads, bq, bk), csrc TcCfg<D>
+_TC_DKV = {64: (128, 64, 64), 128: (256, 64, 64), 256: (256, 32, 64), 512: (256, 32, 32)}
 
 
 def use_flash_attention(n: int, m: int, device) -> bool:
@@ -51,6 +72,50 @@ def use_flash_attention(n: int, m: int, device) -> bool:
         return False
     return (n == m and n >= 1024 and n % 128 == 0
             and torch.device(device).type == "cuda")
+
+
+def head_bucket(d: int) -> int:
+    """The compile-time head-dim bucket the kernels pad d up to."""
+    return next(b for b in _BUCKETS if d <= b)
+
+
+def kernel_variant(dtype, d: int) -> str:
+    """"tc" (tensor cores) or "scalar" (CUDA cores) for the forward and
+    dK/dV kernels, from the operand type and head dim alone."""
+    return "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "scalar"
+
+
+def fwd_config(dtype, d: int) -> dict:
+    """The forward kernel's variant and tiling (mirrors csrc/flash_fwd.cu):
+    bucket, query rows (bq) and keys (bk) per block, threads per CTA and
+    dynamic shared-memory bytes."""
+    D, variant = head_bucket(d), kernel_variant(dtype, d)
+    if variant == "scalar":
+        nt, bq, bk = _SCALAR_FWD[D]
+        smem = 4 * ((bq + 2 * bk) * (D + 1) + bq * (bk + 1) + 2 * bq)
+        design = "scalar"
+    elif D == 64:    # wgmma: two warpgroups of 64 rows, P stays in registers
+        nt, bq, bk = 256, 128, 64
+        smem = (bq + 4 * bk) * D * 2 + 1024
+        design = "tc_wgmma"
+    else:            # mma.sync: output columns split over two warps per 16 rows
+        nt, bq, bk = 256, 64, 32
+        smem = (bq + 4 * bk) * D * 2 + bq * (bk + 8) * 2 + 2 * bq * 4
+        design = "tc_split"
+    return dict(variant=variant, design=design, bucket=D, bq=bq, bk=bk, threads=nt, smem=smem)
+
+
+def dkv_config(dtype, d: int) -> dict:
+    """The dK/dV kernel's variant and tiling (mirrors
+    csrc/flash_bwd_dkv.cu)."""
+    D, variant = head_bucket(d), kernel_variant(dtype, d)
+    if variant == "scalar":
+        nt, bq, bk = _SCALAR_DKV[D]
+        smem = 4 * ((2 * bk + 2 * bq) * (D + 1) + 2 * bq * (bk + 1) + 3 * bq)
+    else:
+        nt, bq, bk = _TC_DKV[D]
+        smem = (2 * bk + 4 * bq) * D * 2 + 2 * bk * (bq + 8) * 2
+    return dict(variant=variant, design=variant, bucket=D, bq=bq, bk=bk, threads=nt, smem=smem)
 
 
 def block_size(n: int) -> int:
@@ -137,26 +202,51 @@ def flash_attention_bwd_plain(q, k, v, l, m, do, di, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _strides(t):
+    """(batch, head, row) element strides of a [b, h, n, d] tensor as the
+    launcher takes them (0 for a dimension of size 1)."""
+    return (ctypes.c_longlong * 3)(*(s if z > 1 else 0 for s, z in zip(t.stride(), t.shape[:3])))
+
+
+def require_rows(t, name: str, dtype, shape, variant: str) -> None:
+    """Raise unless t is a CUDA [b, h, n, d] view the forward kernel takes:
+    unit stride in d, and for the tensor-core variant 16-byte aligned rows."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if t.stride(3) != 1:
+        raise ValueError(f"{name}: expected unit stride in the head dim, got {t.stride()}")
+    if variant == "tc" and (t.data_ptr() % 16 or any(s % 8 for s in _strides(t))):
+        raise ValueError(f"{name}: rows must be 16-byte aligned, got strides {t.stride()}")
+
+
 def launch_fwd(q, k, v, o, l, m, scale: float) -> None:
-    """The forward kernel alone, into preallocated o, l, m."""
+    """The forward kernel alone, into preallocated o, l, m. q, k, v, o
+    may be strided in batch, head and row."""
     b, h, n, d = q.shape
+    tc = kernel_variant(q.dtype, d) == "tc"
     code = kernels.lib().ds_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), l.data_ptr(), m.data_ptr(),
-        b * h, n, d, float(scale), int(q.dtype == torch.bfloat16),
-        kernels.stream_ptr(q.device))
+        b, h, n, d, _strides(q), _strides(k), _strides(v), _strides(o), float(scale),
+        int(q.dtype == torch.bfloat16), int(tc), kernels.stream_ptr(q.device))
     kernels.check(code, "flash_fwd")
     kernels.COUNTS["flash_fwd"] += 1
+    kernels.COUNTS["flash_fwd.tc"] += int(tc)
 
 
 def launch_bwd_dkv(q, k, v, l, m, do, di, dk, dv, scale: float) -> None:
     """The dK/dV kernel alone, into preallocated dk, dv."""
     b, h, n, d = q.shape
+    tc = kernel_variant(q.dtype, d) == "tc"
     code = kernels.lib().ds_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), l.data_ptr(), m.data_ptr(), do.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, n, d, float(scale),
-        int(q.dtype == torch.bfloat16), kernels.stream_ptr(q.device))
+        int(q.dtype == torch.bfloat16), int(tc), kernels.stream_ptr(q.device))
     kernels.check(code, "flash_bwd_dkv")
     kernels.COUNTS["flash_bwd_dkv"] += 1
+    kernels.COUNTS["flash_bwd_dkv.tc"] += int(tc)
 
 
 def launch_bwd_dq(q, k, v, l, m, do, di, dq, scale: float) -> None:
@@ -172,13 +262,15 @@ def launch_bwd_dq(q, k, v, l, m, do, di, dq, scale: float) -> None:
 
 def flash_fwd(q, k, v, scale: float):
     """Forward kernel on CUDA tensors, plain version on CPU tensors.
-    Returns (o, l, m)."""
+    Returns (o, l, m); on CUDA o is [b, h, n, d] laid out as [b, n, h, d]."""
     check_shapes(q, k, v)
     if q.device.type != "cuda":
         return flash_attention_fwd_plain(q, k, v, scale)
+    b, h, n, d = q.shape
+    variant = kernel_variant(q.dtype, d)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        kernels.require(t, name, q.dtype)
-    o = torch.empty_like(q)
+        require_rows(t, name, q.dtype, q.shape, variant)
+    o = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     l = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
     launch_fwd(q, k, v, o, l, m, scale)
@@ -189,9 +281,10 @@ def flash_bwd(q, k, v, o, l, m, do, scale: float):
     """Both backward kernels on CUDA tensors (dK/dV, then dQ), the plain
     version on CPU tensors. di comes from the stored output. Returns
     (dq, dk, dv)."""
-    di = (o.float() * do.float()).sum(-1)
+    di = (o.float() * do.float()).sum(-1).contiguous()
     if q.device.type != "cuda":
         return flash_attention_bwd_plain(q, k, v, l, m, do, di, scale)
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         kernels.require(t, name, q.dtype, q.shape)
     for name, t in (("l", l), ("m", m), ("di", di)):
@@ -213,10 +306,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, l, m = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, l, m, do.contiguous(), ctx.scale)
+        dq, dk, dv = flash_bwd(q, k, v, o, l, m, do, ctx.scale)
         return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, scale: float):
-    """softmax(scale * q k^T) v on [b, h, n, d] through K4."""
-    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), float(scale))
+    """softmax(scale * q k^T) v on [b, h, n, d] through K4. q, k, v may be
+    any views with unit stride in d."""
+    return FlashAttention.apply(q, k, v, float(scale))

@@ -11,7 +11,13 @@ than one ulp of their own magnitude away: near-zero results of long f32
 sums differ in their last bits with the summation order. The
 modules (`Attention`, `VAEAttention`) with the flash route forced on both
 sides (the JAX gate monkeypatched to True in the test only) match the
-Flax modules at atol 1e-5 on outputs and input gradients.
+Flax modules at atol 1e-5 on outputs and input gradients; `Attention`
+hands the kernels strided [b, h, n, d] views of its projections.
+
+The choice of kernel variant and tiling (`kernel_variant`, `fwd_config`,
+`dkv_config`) is pure Python and is pinned here for every shape of the
+main path: shared memory within one CTA's 232,448 bytes, tiles dividing
+n.
 """
 
 import jax
@@ -92,6 +98,64 @@ def test_limits_raise(shape, dtype):
         fa.flash_attention(x, x, x, 1.0)
 
 
+# (head dim, dtype) -> variant, forward design. The first two rows are the
+# main path's UNet and VAE shapes ([12,5,4096,64], [12,10,1024,64],
+# [4,1,4096,512], [1,1,4096,512], all bfloat16).
+@pytest.mark.parametrize("d,dtype,variant,design", [
+    (64, torch.bfloat16, "tc", "tc_wgmma"),
+    (512, torch.bfloat16, "tc", "tc_split"),
+    (128, torch.bfloat16, "tc", "tc_split"),
+    (256, torch.bfloat16, "tc", "tc_split"),
+    (48, torch.bfloat16, "tc", "tc_wgmma"),
+    (384, torch.bfloat16, "tc", "tc_split"),
+    (40, torch.bfloat16, "scalar", "scalar"),     # d % 16 != 0
+    (64, torch.float32, "scalar", "scalar"),      # no f32 product on tensor cores
+    (512, torch.float32, "scalar", "scalar"),
+])
+def test_kernel_variant_and_tiles(d, dtype, variant, design):
+    assert fa.kernel_variant(dtype, d) == variant
+    fwd, dkv = fa.fwd_config(dtype, d), fa.dkv_config(dtype, d)
+    assert fwd["variant"] == dkv["variant"] == variant
+    assert fwd["design"] == design
+    for cfg in (fwd, dkv):
+        assert cfg["bucket"] == fa.head_bucket(d) >= d
+        assert cfg["smem"] <= fa.SMEM_LIMIT == 232_448, cfg
+        assert 128 % cfg["bq"] == 0 and 128 % cfg["bk"] == 0, cfg   # n % 128 == 0
+        assert cfg["threads"] % 32 == 0 and cfg["threads"] <= 1024
+    if variant == "tc":
+        assert fwd["bq"] % 16 == 0 and fwd["bk"] % 16 == 0
+        assert dkv["bucket"] % (dkv["threads"] // 32 * 16) == 0   # columns per warp
+
+
+def test_head_bucket():
+    assert [fa.head_bucket(d) for d in (1, 64, 65, 128, 256, 257, 512)] == [
+        64, 64, 128, 128, 256, 512, 512]
+
+
+def test_strided_views_match_contiguous():
+    """q, k, v as transposed views of [b, n, h*d] projections give the
+    same values and gradients as contiguous copies."""
+    b, h, n, d = 2, 2, 256, 16
+    rng = np.random.default_rng(5)
+    proj = [torch.tensor(rng.standard_normal((b, n, h * d)).astype(np.float32),
+                         requires_grad=True) for _ in range(3)]
+    views = [x.reshape(b, n, h, d).transpose(1, 2) for x in proj]
+    assert not any(x.is_contiguous() for x in views)
+    assert list(fa._strides(views[0])) == [n * h * d, d, h * d]
+    assert list(fa._strides(views[0][:, :1])) == [n * h * d, 0, h * d]   # size-1 head dim
+    assert list(fa._strides(views[0][:1])) == [0, d, h * d]
+    g = torch.tensor(rng.standard_normal((b, h, n, d)).astype(np.float32))
+    o = fa.flash_attention(*views, d**-0.5)
+    o.backward(g)
+    grads = [x.grad.clone() for x in proj]
+    dense = [x.detach().contiguous().requires_grad_(True) for x in views]
+    o2 = fa.flash_attention(*dense, d**-0.5)
+    o2.backward(g)
+    assert torch.equal(o, o2)
+    for a, x in zip(grads, dense):
+        assert torch.equal(a.reshape(b, n, h, d).transpose(1, 2), x.grad)
+
+
 def _force_flash(monkeypatch):
     monkeypatch.setattr(sd_flax, "_use_flash_attention", lambda n, m: True)
     monkeypatch.setattr(fa, "use_flash_attention", lambda n, m, device: True)
@@ -121,9 +185,22 @@ def test_attention_module_flash_route_matches_flax(monkeypatch):
     _dense(sd, "to_out.0", p["to_out_0"])
     tmod = sdm.Attention(dim, heads, hd, torch.float32)
     tmod.load_state_dict(sd)
+    # the module hands K4 strided [b, h, n, d] views of its [b, n, h*d]
+    # projections, without a copy
+    seen, flash_attention = [], fa.flash_attention
+
+    def record(q, k, v, scale):
+        seen.append([(tuple(t.shape), t.stride(), t.is_contiguous()) for t in (q, k, v)])
+        return flash_attention(q, k, v, scale)
+
+    monkeypatch.setattr(fa, "flash_attention", record)
     tx = torch.tensor(x, requires_grad=True)
     to = tmod(tx)
     to.backward(torch.tensor(g))
+    assert len(seen) == 1
+    for shape, stride, contiguous in seen[0]:
+        assert shape == (b, heads, n, hd) and not contiguous
+        assert stride == (n * heads * hd, hd, heads * hd, 1)
     np.testing.assert_allclose(to.detach().numpy(), np.asarray(jo), atol=1e-5)
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), atol=1e-5)
 

@@ -29,12 +29,48 @@ def test_kernels_match_plain_versions(card, tile_w, tile_h):
     assert errs["expand_entries"] == 0.0
 
 
+# every head-dim bucket of the tensor-core forward and dK/dV kernels
+# (bfloat16: 64, 128, 256, 512, and d = 48 zero-padded to 64), the
+# CUDA-core variant (float32; bfloat16 with d % 16 != 0); check_flash also
+# runs the forward on strided views of [b, n, h*d] projections
 @pytest.mark.parametrize("shape,dtype", [((2, 3, 1024, 64), torch.bfloat16),
                                          ((1, 1, 1024, 512), torch.bfloat16),
+                                         ((1, 2, 512, 128), torch.bfloat16),
+                                         ((1, 1, 512, 256), torch.bfloat16),
+                                         ((1, 2, 256, 48), torch.bfloat16),
+                                         ((1, 2, 256, 40), torch.bfloat16),
                                          ((1, 2, 256, 40), torch.float32),
                                          ((1, 1, 384, 256), torch.float32)])
 def test_flash_kernels_match_plain_versions(card, shape, dtype):
     import chip_smoke as cs
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.ops import flash_attention as fa
 
+    kernels.reset_counts()
     row = cs.check_flash(f"pytest {shape}", shape, dtype, timing=False)
     assert set(row["errs"]) == {"flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"}
+    tc = int(fa.kernel_variant(dtype, shape[3]) == "tc")
+    assert kernels.COUNTS["flash_fwd"] > 0 and kernels.COUNTS["flash_bwd_dkv"] > 0
+    assert kernels.COUNTS["flash_fwd.tc"] == tc * kernels.COUNTS["flash_fwd"]
+    assert kernels.COUNTS["flash_bwd_dkv.tc"] == tc * kernels.COUNTS["flash_bwd_dkv"]
+
+
+def test_flash_fwd_strided_views(card):
+    """The forward on the attention module's transposed views equals the
+    forward on contiguous copies, bit for bit, and o's [b, n, h*d] reshape
+    is a view; a view without unit stride in d raises."""
+    from dreamscene_tpu_torch.ops import flash_attention as fa
+
+    b, h, n, d = 2, 5, 1024, 64
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    proj = [torch.randn((b, n, h * d), device="cuda", generator=gen).bfloat16()
+            for _ in range(3)]
+    views = [x.reshape(b, n, h, d).transpose(1, 2) for x in proj]
+    o_v, l_v, m_v = fa.flash_fwd(*views, d**-0.5)
+    o_c, l_c, m_c = fa.flash_fwd(*(x.contiguous() for x in views), d**-0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(o_v, o_c) and torch.equal(l_v, l_c) and torch.equal(m_v, m_c)
+    assert o_v.transpose(1, 2).reshape(b, n, h * d).data_ptr() == o_v.data_ptr()
+    bad = views[0].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError):
+        fa.flash_fwd(bad, views[1], views[2], d**-0.5)
