@@ -9,13 +9,16 @@ Phases (any failure exits non-zero; nothing is caught):
   2. each hand-written kernel against its plain PyTorch version on the
      card, on seeded scenes: a small one, a 16x16-tile leg and the main
      path's full width (50K splats, 512^2, 32x16 tiles). K3 bit-equal;
-     K1 rows R,G,B,DEPTH,T at atol 1e-5 / rtol 1e-4 and LIVE equal; K2
-     within 1e-4 of max|g| and bit-identical across two runs. Times of
-     kernel and plain version at full width;
+     K1 rows R,G,B,DEPTH,T at atol 1e-5 / rtol 1e-4 and LIVE equal, its
+     per-chunk carry table (T and accumulators at each chunk's start, from
+     which K2 walks one chunk per CTA) held to the plain version's the same
+     way; K2 within 1e-4 of max|g| and bit-identical across two runs. The
+     per-tile distribution of chunks and live entries of each scene. Times
+     of kernel and plain version at full width;
   2b. K4 (flash attention forward, dK/dV, dQ) against its plain versions
      at every shape the main path gives it (bf16, the tensor-core variant
-     of the forward and dK/dV kernels) plus one f32 case (the CUDA-core
-     variant), and the forward once more on the attention module's
+     of all three kernels) plus one f32 case (the CUDA-core variant), and
+     the forward once more on the attention module's
      strided views of [b, n, h*d] projections: f32 at atol 2e-6 (forward)
      / 5e-6 (gradients), bf16 at max|d| <= 2^-7 max|plain|; times of
      kernels, plain versions, SDPA (forward and forward+backward) and the
@@ -27,7 +30,7 @@ Phases (any failure exits non-zero; nothing is caught):
      (K1-K3 once per camera, K4 never), one step under torch.profiler
      (device time by phase and kernel); then the same 7 steps with
      DS_FLASH_ATTN=1, timed, with the K4 launches checked against the
-     ladder lengths and every forward and dK/dV launch counted as the
+     ladder lengths and every forward, dK/dV and dQ launch counted as the
      tensor-core variant, and one such step under torch.profiler;
   3b. ObjectTrainer.train(make_videos=True) at config #2 width with
      DS_FLASH_ATTN=1 and configs/objects/sample.yaml's cadences, from step
@@ -121,64 +124,11 @@ def cuda_time(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def make_scene(n_pts, width, height, seed, rng_cam_seed=0):
-    """The trainer's first-step inputs: ball init + one random camera."""
-    from dreamscene_tpu_torch.cameras import sampling as S
-    from dreamscene_tpu_torch.models.gaussians import create_from_points
-    from dreamscene_tpu_torch.models.init import init_object_points
-    from dreamscene_tpu_torch.utils.config import GenerateCamParams
+def make_scene(n_pts, width, height, seed):
+    """A seeded full-path scene with a fresh init-cloud cache directory."""
+    from dreamscene_tpu_torch.bench import scenes
 
-    pts, cols, sls = init_object_points("default", "", fresh_dir("init"), num_pts=n_pts,
-                                        seed=seed)
-    st = create_from_points(pts, cols, sh_degree=2, capacity=min(4 * n_pts, n_pts + 10000),
-                            spatial_lr_scale=sls, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    # perturb the fresh state so opacities, colours and shapes vary
-    st.params["features_rest"].normal_(0.0, 0.2, generator=g)
-    st.params["opacity"].normal_(-1.0, 1.5, generator=g)
-    st.params["scaling"].add_(torch.randn(st.params["scaling"].shape, device="cuda",
-                                          generator=g) * 0.5)
-    st.params["rotation"].normal_(0.0, 1.0, generator=g)
-    pose = GenerateCamParams(image_w=width, image_h=height)
-    cam = S.load_random_cam(np.random.default_rng(rng_cam_seed), pose, ssaa=True)
-    return st, cam
-
-
-def binned_inputs(st, cam, tile_w, tile_h, chunk=512):
-    """Project and bin one view; returns everything the kernels take."""
-    from dreamscene_tpu_torch.ops import binning
-    from dreamscene_tpu_torch.ops.projection import project_gaussians
-
-    dev = torch.device("cuda")
-    with torch.no_grad():
-        sp = project_gaussians(
-            st.get_xyz, st.get_scaling, st.get_rotation, st.get_opacity[:, 0],
-            st.get_features, torch.as_tensor(cam.world_view_transform, device=dev),
-            torch.as_tensor(cam.full_proj_transform, device=dev),
-            torch.as_tensor(cam.camera_center, device=dev), cam.tanfovx,
-            cam.tanfovy, cam.width, cam.height, sh_degree=2,
-            valid_mask=st.aux["active"])
-        n = sp.means2d.shape[0]
-        capacity = 4 * n
-        ex = binning.expand_args(sp.means2d, sp.depths, sp.radii, sp.visible,
-                                 cam.width, cam.height, capacity, sp.conics,
-                                 sp.opacities, None, tile_w, tile_h)
-        b = binning.bin_splats(sp.means2d, sp.depths, sp.radii, sp.visible,
-                               cam.width, cam.height, capacity=capacity,
-                               chunk=chunk, conics=sp.conics,
-                               opacities=sp.opacities, tile_w=tile_w, tile_h=tile_h)
-        rec_n = torch.cat([sp.means2d, sp.conics, sp.opacities[:, None], sp.colors,
-                           sp.depths[:, None], sp.means2d.new_zeros((n, 6))], 1)
-        cap_pad = binning.cdiv(capacity, 128) * 128 + chunk
-        gid_pad = torch.cat([b.gid_sorted, torch.zeros(cap_pad - capacity, dtype=torch.int32,
-                                                        device=dev)])
-        records_t = rec_n.index_select(0, gid_pad.long()).t().contiguous()
-    tiles_x = binning.cdiv(cam.width, tile_w)
-    n_tiles = tiles_x * binning.cdiv(cam.height, tile_h)
-    meta = (b.chunk_tile, b.chunk_s0, b.chunk_lo, b.chunk_hi, b.chunk_first,
-            b.n_chunks_used)
-    return dict(ex=ex, binned=b, records_t=records_t, meta=meta, n_tiles=n_tiles,
-                tiles_x=tiles_x, chunk=chunk, tile_w=tile_w, tile_h=tile_h)
+    return scenes.make_scene(n_pts, width, height, seed, fresh_dir("init"))
 
 
 def pair_count(inp):
@@ -211,8 +161,11 @@ def pair_count(inp):
 
 def check_kernels(label, inp, timing):
     """Phase 2 on one scene. Returns a dict of rows when `timing`."""
+    from dreamscene_tpu_torch.bench.scenes import tile_stats
     from dreamscene_tpu_torch.ops import composite as C
     from dreamscene_tpu_torch.ops import expand as E
+
+    log(f"[kernels] {label} tiles: " + json.dumps(tile_stats(inp)))
 
     kw = inp["ex"]["kwargs"]
     key_k, gid_k = E.expand_entries(**kw)
@@ -225,19 +178,27 @@ def check_kernels(label, inp, timing):
     geo = dict(n_tiles=inp["n_tiles"], tiles_x=inp["tiles_x"], chunk=inp["chunk"],
                tile_w=inp["tile_w"], tile_h=inp["tile_h"])
     rt, meta = inp["records_t"], inp["meta"]
-    out_k = C.composite_forward(rt, *meta, **geo)
-    out_p = C.composite_forward_plain(rt, *meta[:4], meta[5], **geo)
+    out_k, carry_k = C.composite_forward_carry(rt, *meta, **geo)
+    out_p, carry_p = C.composite_forward_plain(rt, *meta[:4], meta[5], **geo, return_carry=True)
     torch.cuda.synchronize()
     a, b = out_k[:, :5], out_p[:, :5]
     err_k1 = float((a - b).abs().max())
     ok = torch.isclose(a, b, atol=1e-5, rtol=1e-4).all().item()
     assert ok, f"{label}: composite_fwd max abs err {err_k1}"
     assert torch.equal(out_k[:, 5], out_p[:, 5]), f"{label}: LIVE rows differ"
+    # the carry table: only the rows of live chunks are written
+    live_u = torch.nonzero((meta[3] > meta[2])[:int(meta[5])]).flatten()
+    err_carry = float((carry_k[live_u] - carry_p[live_u]).abs().max()) if live_u.numel() else 0.0
+    ok = torch.isclose(carry_k[live_u], carry_p[live_u], atol=1e-5, rtol=1e-4).all().item()
+    assert ok, f"{label}: composite_fwd carry table max abs err {err_carry}"
+    err_k1 = max(err_k1, err_carry)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     g_out = torch.randn(out_p.shape, device="cuda", generator=gen)
-    gk1 = C.composite_backward(rt, *meta, out_k, g_out, **geo)
-    gk2 = C.composite_backward(rt, *meta, out_k, g_out, **geo)
+    gk1 = C.composite_backward(rt, *meta, out_k, g_out, **geo, carry=carry_k)
+    # once more from the table of a second K1 launch
+    out_2, carry_2 = C.composite_forward_carry(rt, *meta, **geo)
+    gk2 = C.composite_backward(rt, *meta, out_2, g_out, **geo, carry=carry_2)
     gp = C.composite_backward_plain(rt, *meta[:4], meta[5], out_k, g_out, **geo)
     torch.cuda.synchronize()
     assert torch.equal(gk1, gk2), f"{label}: composite_bwd not bit-reproducible"
@@ -257,11 +218,12 @@ def check_kernels(label, inp, timing):
     n_chunks = meta[0].shape[0]
     tile_pix = inp["tile_w"] * inp["tile_h"]
     acc_bytes = (inp["n_tiles"] + 1) * 8 * tile_pix * 4
+    carry_bytes = int(live_u.numel()) * C.CARRY_ROWS * tile_pix * 4   # live chunks' rows only
     # kernel times: the launches alone, inputs validated and allocated once
     k3 = E.prepare_expand(block=E.BLOCK, **kw)
     k1 = C.prepare_forward(rt, *meta[:4], inp["n_tiles"], inp["tiles_x"], inp["tile_w"],
                            inp["tile_h"])
-    k2 = C.prepare_backward(rt, *meta[:4], meta[5], out_k, g_out, inp["n_tiles"],
+    k2 = C.prepare_backward(rt, *meta[:4], meta[5], out_k, g_out, carry_k, inp["n_tiles"],
                             inp["tiles_x"], inp["chunk"], inp["tile_w"], inp["tile_h"])
     rows = {}
     rows["expand_entries"] = dict(
@@ -271,13 +233,14 @@ def check_kernels(label, inp, timing):
     rows["composite_fwd"] = dict(
         ms=cuda_time(lambda: C.launch_forward(*k1), 20),
         plain_ms=cuda_time(lambda: C.composite_forward_plain(rt, *meta[:4], meta[5], **geo), 3),
-        bytes=live * 10 * 4 + 4 * n_chunks * 4 + acc_bytes,
+        bytes=live * 10 * 4 + 4 * n_chunks * 4 + acc_bytes + carry_bytes,
         ops=pairs * FWD_OPS_PER_PAIR)
     rows["composite_bwd"] = dict(
         ms=cuda_time(lambda: C.launch_backward(*k2), 20),
         plain_ms=cuda_time(lambda: C.composite_backward_plain(
             rt, *meta[:4], meta[5], out_k, g_out, **geo), 3),
-        bytes=live * 10 * 4 + 4 * n_chunks * 4 + 2 * acc_bytes + 16 * n_chunks * inp["chunk"] * 4,
+        bytes=(live * 10 * 4 + 4 * n_chunks * 4 + 2 * acc_bytes + carry_bytes
+               + 16 * n_chunks * inp["chunk"] * 4),
         ops=pairs * BWD_OPS_PER_PAIR)
     for r in rows.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -352,7 +315,7 @@ def check_flash(label, shape, dtype, timing=True):
     assert torch.isfinite(l_k).all() and torch.isfinite(m_k).all()
     variant = {"flash_fwd": fa.fwd_config(dtype, shape[3])["design"],
                "flash_bwd_dkv": fa.dkv_config(dtype, shape[3])["design"],
-               "flash_bwd_dq": "scalar"}
+               "flash_bwd_dq": fa.dq_config(dtype, shape[3])["design"]}
     row = {"errs": {"flash_fwd": max(errs["o"], errs["o_strided"]),
                     "flash_bwd_dkv": max(errs["dk"], errs["dv"]), "flash_bwd_dq": errs["dq"]},
            "variant": variant}
@@ -464,9 +427,10 @@ def run_slice():
     expect_f = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
     expect_f.update(flash_fwd=sum(10 * (r + 1) + 1 for r in rungs),
                     flash_bwd_dkv=n_steps, flash_bwd_dq=n_steps)
-    # the whole path computes in bf16: every forward and dK/dV launch must
-    # have taken the tensor-core variant
-    expect_f.update({"flash_fwd.tc": expect_f["flash_fwd"], "flash_bwd_dkv.tc": n_steps})
+    # the whole path computes in bf16: every forward, dK/dV and dQ launch
+    # must have taken the tensor-core variant
+    expect_f.update({"flash_fwd.tc": expect_f["flash_fwd"], "flash_bwd_dkv.tc": n_steps,
+                     "flash_bwd_dq.tc": n_steps})
     assert counts_f == expect_f, (counts_f, expect_f)
     log(f"[slice] DS_FLASH_ATTN=1: median {ms_f:.1f} ms/step (unset: {ms:.1f}), rungs {rungs}, "
         f"peak mem {peak_f:.1f} GiB, launches {counts_f}")
@@ -611,7 +575,8 @@ def run_train():
     assert calls["unet"] == sum(r + 1 for r in rungs), (calls, rungs)
     expect = {"flash_fwd": 10 * calls["unet"] + calls["vae_encoder"] + calls["vae_decoder"],
               "flash_bwd_dkv": len(losses), "flash_bwd_dq": len(losses)}
-    expect.update({"flash_fwd.tc": expect["flash_fwd"], "flash_bwd_dkv.tc": len(losses)})
+    expect.update({"flash_fwd.tc": expect["flash_fwd"], "flash_bwd_dkv.tc": len(losses),
+                   "flash_bwd_dq.tc": len(losses)})
     assert all(counts[k] == v for k, v in expect.items()), (counts, expect, calls)
     assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES), counts
     assert sum(fwd_shapes.values()) == counts["flash_fwd"], fwd_shapes
@@ -759,6 +724,7 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.bench.scenes import binned_inputs
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

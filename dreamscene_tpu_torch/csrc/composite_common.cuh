@@ -7,8 +7,14 @@
 // Compositing semantics follow the JAX kernels chunk by chunk: within each
 // chunk a pixel applies the prefix of entries that keeps T >= 1e-4 and skips
 // the rest of that chunk; the next chunk starts again from the T reached so
-// far. Both kernels evaluate `entry_alpha` with the same operations, so K2
-// replays exactly the decisions K1 made.
+// far. Both kernels evaluate alpha with the same operations (`entry_power`
+// then `alpha_of`; `entry_alpha` is the two together), so K2 replays exactly
+// the decisions K1 made.
+//
+// Carry table (K1 writes it, K2 reads it): [n_chunks, 5, tile_pix], for each
+// live chunk the state of each pixel of its tile when the chunk starts:
+// rows 0-3 the accumulated rgb and depth, row 4 T. With it every chunk's
+// backward is independent of the chunks before it.
 
 #pragma once
 
@@ -19,6 +25,7 @@ namespace ds {
 constexpr int REC_WIDTH = 16;
 constexpr int N_LIVE = 10;
 constexpr int ACC_ROWS = 8;
+constexpr int CARRY_ROWS = 5;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
 constexpr float T_EPS = 1e-4f;
@@ -27,22 +34,33 @@ struct Rec {
   float mx, my, ca, cb, cc, opa, r, g, b, depth;
 };
 
-// alpha of one entry at one pixel; also returns power, raw = opa*exp(power)
-// and exp(power) for K2
-__device__ __forceinline__ float entry_alpha(const Rec& e, float px, float py,
-                                             float* power_out, float* raw_out,
-                                             float* ex_out) {
-  float dx = e.mx - px;
-  float dy = e.my - py;
-  float power = -0.5f * (e.ca * dx * dx + e.cc * dy * dy) - e.cb * dx * dy;
+// exponent of one entry's Gaussian at one pixel
+__device__ __forceinline__ float entry_power(float mx, float my, float ca, float cb, float cc,
+                                             float px, float py) {
+  float dx = mx - px;
+  float dy = my - py;
+  return -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+}
+
+// alpha from the exponent; also returns raw = opa*exp(power) and exp(power)
+__device__ __forceinline__ float alpha_of(float opa, float power, float* raw_out,
+                                          float* ex_out) {
   float ex = expf(power);
-  float raw = e.opa * ex;
+  float raw = opa * ex;
   float alpha = fminf(ALPHA_MAX, raw);
   if (power > 0.0f || raw < ALPHA_MIN) alpha = 0.0f;
-  *power_out = power;
   *raw_out = raw;
   *ex_out = ex;
   return alpha;
+}
+
+// alpha of one entry at one pixel; also returns power, raw and exp(power)
+__device__ __forceinline__ float entry_alpha(const Rec& e, float px, float py,
+                                             float* power_out, float* raw_out,
+                                             float* ex_out) {
+  float power = entry_power(e.mx, e.my, e.ca, e.cb, e.cc, px, py);
+  *power_out = power;
+  return alpha_of(e.opa, power, raw_out, ex_out);
 }
 
 // first chunk of tile t in the sorted chunk_tile array (lower bound)

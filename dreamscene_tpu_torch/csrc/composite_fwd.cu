@@ -11,7 +11,10 @@
 // Each pixel composites them in order (see composite_common.cuh for the
 // chunk-local stop rule) and writes [rgb, depth, T, live-chunk count, 0, 0]
 // into out[t, :, pixel]. Row n_tiles (trash) and tiles without entries get
-// the background state (zeros, T = 1).
+// the background state (zeros, T = 1). It also writes each live chunk's row
+// of the carry table (composite_common.cuh): the accumulators and T its
+// pixels have when the chunk starts, from which K2 walks every chunk on its
+// own.
 //
 // Bound on this card: operations on the entry-pixel pairs. Every pixel of a
 // tile evaluates every entry of the tile (an exp and ~20 FLOPs each), while
@@ -30,7 +33,8 @@ __global__ void composite_fwd_kernel(
     const float* __restrict__ rec, int cap_pad,
     const int* __restrict__ chunk_tile, const int* __restrict__ s0,
     const int* __restrict__ lo, const int* __restrict__ hi, int n_chunks,
-    float* __restrict__ out, int n_tiles, int tiles_x, int tile_w, int tile_h) {
+    float* __restrict__ out, float* __restrict__ carry, int n_tiles, int tiles_x,
+    int tile_w, int tile_h) {
   __shared__ float srec[ds::N_LIVE][BATCH];
   __shared__ int range[2];
   const int t = blockIdx.x;
@@ -53,6 +57,12 @@ __global__ void composite_fwd_kernel(
       const int l = lo[u], h = hi[u];
       if (h <= l) continue;               // uniform across the CTA
       live += 1.0f;
+      float* c = carry + (size_t)u * ds::CARRY_ROWS * tile_pix + p;
+      c[0 * tile_pix] = acc[0];
+      c[1 * tile_pix] = acc[1];
+      c[2 * tile_pix] = acc[2];
+      c[3 * tile_pix] = acc[3];
+      c[4 * tile_pix] = T;
       const int base = s0[u];
       bool stopped = false;               // the stop rule is chunk-local
       for (int j0 = l; j0 < h; j0 += BATCH) {
@@ -96,13 +106,13 @@ __global__ void composite_fwd_kernel(
 
 extern "C" int ds_composite_fwd(
     const void* rec, int cap_pad, const void* chunk_tile, const void* s0,
-    const void* lo, const void* hi, int n_chunks, void* out,
+    const void* lo, const void* hi, int n_chunks, void* out, void* carry,
     int n_tiles, int tiles_x, int tile_w, int tile_h, void* stream) {
   const int tile_pix = tile_w * tile_h;
   if (tile_pix % 32 != 0 || tile_pix > 1024) return (int)cudaErrorInvalidValue;
   composite_fwd_kernel<<<n_tiles + 1, tile_pix, 0, (cudaStream_t)stream>>>(
       (const float*)rec, cap_pad, (const int*)chunk_tile, (const int*)s0,
-      (const int*)lo, (const int*)hi, n_chunks, (float*)out, n_tiles, tiles_x,
-      tile_w, tile_h);
+      (const int*)lo, (const int*)hi, n_chunks, (float*)out, (float*)carry, n_tiles,
+      tiles_x, tile_w, tile_h);
   return (int)cudaGetLastError();
 }

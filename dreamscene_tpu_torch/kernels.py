@@ -37,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 COUNTS: collections.Counter = collections.Counter()
 KERNEL_NAMES = ("expand_entries", "composite_fwd", "composite_bwd", "flash_fwd",
                 "flash_bwd_dkv", "flash_bwd_dq")
-VARIANT_NAMES = ("flash_fwd.tc", "flash_bwd_dkv.tc")
+VARIANT_NAMES = ("flash_fwd.tc", "flash_bwd_dkv.tc", "flash_bwd_dq.tc")
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -55,13 +55,13 @@ _SIGNATURES = {
     ],
     "ds_composite_fwd": [
         _P, _I, _P, _P, _P, _P, _I,            # rec cap_pad chunk_tile s0 lo hi n_chunks
-        _P,                                    # out
+        _P, _P,                                # out carry
         _I, _I, _I, _I,                        # n_tiles tiles_x tile_w tile_h
         _P,                                    # stream
     ],
     "ds_composite_bwd": [
         _P, _I, _P, _P, _P, _P, _I, _P,        # rec cap_pad chunk_tile s0 lo hi n_chunks n_used
-        _P, _P,                                # final grad_out
+        _P, _P, _P,                            # carry final grad_out
         _P,                                    # grec
         _I, _I, _I, _I, _I,                    # n_tiles tiles_x tile_w tile_h chunk
         _P,                                    # stream
@@ -82,7 +82,7 @@ _SIGNATURES = {
     "ds_flash_bwd_dq": [
         _P, _P, _P, _P, _P, _P, _P,            # q k v l m dout di
         _P,                                    # dq
-        _I, _I, _I, _F, _I,                    # bh n d scale bf16
+        _I, _I, _I, _F, _I, _I,                # bh n d scale bf16 tc
         _P,                                    # stream
     ],
 }

@@ -23,6 +23,18 @@ S = c_final.g + g_T T_final - prefix(w c.g).
 CUDA tensors go to csrc/composite_fwd.cu and csrc/composite_bwd.cu; CPU
 tensors go to the plain versions, which process all tiles' k-th chunks
 together and each chunk as one [tiles, pixels, lanes] block.
+
+The carry table [n_chunks, 5, tile_pix] (rows R, G, B, DEPTH, T) holds, for
+each live chunk, the state of its tile's pixels when the chunk starts; rows
+of other chunks are not written. K1 writes it beside the accumulators and
+K2 starts every chunk from its row (one CTA per chunk), so a tile's chunks
+run side by side: T is K1's own value, and the prefix of w c.g up to the
+chunk is g . carry[:4], because the prefix is linear in g.
+`composite_forward_carry` returns it and `composite_backward` on CUDA
+tensors requires it. The plain versions can
+produce and consume the same table (`return_carry`, `carry`), which is how
+the CPU tests pin that a chunk restarted from its row gives the sequential
+walk's gradients.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ N_LIVE_FIELDS = 10
 REC_WIDTH = 16
 A_R, A_G, A_B, A_DEPTH, A_T, A_LIVE = range(6)
 ACC_ROWS = 8
+CARRY_ROWS = 5
 
 # elements of one [tiles, pixels, lanes] block in the plain versions
 _PLAIN_BLOCK_ELEMS = 1 << 24
@@ -63,27 +76,42 @@ def composite_forward(records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
                       chunk_first, n_chunks_used, n_tiles: int, tiles_x: int,
                       chunk: int = 512, tile_w: int = 32, tile_h: int = 16):
     """Tile accumulators [n_tiles+1, 8, tile_pix] f32."""
+    return composite_forward_carry(
+        records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi, chunk_first,
+        n_chunks_used, n_tiles, tiles_x, chunk, tile_w, tile_h)[0]
+
+
+def composite_forward_carry(records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
+                            chunk_first, n_chunks_used, n_tiles: int, tiles_x: int,
+                            chunk: int = 512, tile_w: int = 32, tile_h: int = 16):
+    """(tile accumulators, carry table [n_chunks, 5, tile_pix] f32); the
+    table is None for CPU tensors, whose plain backward needs none."""
     if records_t.device.type == "cpu":
         return composite_forward_plain(
             records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
-            n_chunks_used, n_tiles, tiles_x, chunk, tile_w, tile_h)
-    return launch_forward(*prepare_forward(
+            n_chunks_used, n_tiles, tiles_x, chunk, tile_w, tile_h), None
+    args, tensors = prepare_forward(
         records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi, n_tiles, tiles_x,
-        tile_w, tile_h))
+        tile_w, tile_h)
+    return launch_forward(args, tensors), tensors[-2]
 
 
 def prepare_forward(records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
                     n_tiles, tiles_x, tile_w, tile_h):
-    """Validate and allocate: the K1 launcher's arguments and its output."""
+    """Validate and allocate: the K1 launcher's arguments and its outputs
+    (the carry table, then the accumulators)."""
     meta = (chunk_tile, chunk_s0, chunk_lo, chunk_hi)
     _check_inputs(records_t, meta, tile_w, tile_h)
-    out = torch.empty((n_tiles + 1, ACC_ROWS, tile_w * tile_h), dtype=torch.float32,
+    tile_pix, n_chunks = tile_w * tile_h, chunk_tile.shape[0]
+    out = torch.empty((n_tiles + 1, ACC_ROWS, tile_pix), dtype=torch.float32,
                       device=records_t.device)
+    carry = torch.empty((n_chunks, CARRY_ROWS, tile_pix), dtype=torch.float32,
+                        device=records_t.device)
     args = (records_t.data_ptr(), records_t.shape[1], chunk_tile.data_ptr(),
             chunk_s0.data_ptr(), chunk_lo.data_ptr(), chunk_hi.data_ptr(),
-            chunk_tile.shape[0], out.data_ptr(), n_tiles, tiles_x, tile_w, tile_h,
+            n_chunks, out.data_ptr(), carry.data_ptr(), n_tiles, tiles_x, tile_w, tile_h,
             kernels.stream_ptr(records_t.device))
-    return args, (records_t, *meta, out)
+    return args, (records_t, *meta, carry, out)
 
 
 def launch_forward(args, tensors):
@@ -97,38 +125,46 @@ def launch_forward(args, tensors):
 def composite_backward(records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
                        chunk_first, n_chunks_used, final_accums, grad_accums,
                        n_tiles: int, tiles_x: int, chunk: int = 512,
-                       tile_w: int = 32, tile_h: int = 16):
-    """Per-entry grad table [16, n_chunks*chunk] f32."""
+                       tile_w: int = 32, tile_h: int = 16, carry=None):
+    """Per-entry grad table [16, n_chunks*chunk] f32. `carry` is the table
+    `composite_forward_carry` returned for these inputs: CUDA tensors need
+    it (the plain version walks the chunks in order and needs none)."""
     if records_t.device.type == "cpu":
         return composite_backward_plain(
             records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
             n_chunks_used, final_accums, grad_accums, n_tiles, tiles_x,
             chunk, tile_w, tile_h)
+    if carry is None:
+        raise ValueError("composite_backward on CUDA tensors needs the carry table that "
+                         "composite_forward_carry returned for these inputs")
     return launch_backward(*prepare_backward(
         records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi, n_chunks_used,
-        final_accums, grad_accums, n_tiles, tiles_x, chunk, tile_w, tile_h))
+        final_accums, grad_accums, carry, n_tiles, tiles_x, chunk, tile_w, tile_h))
 
 
 def prepare_backward(records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
-                     n_chunks_used, final_accums, grad_accums, n_tiles, tiles_x,
+                     n_chunks_used, final_accums, grad_accums, carry, n_tiles, tiles_x,
                      chunk, tile_w, tile_h):
     """Validate and allocate: the K2 launcher's arguments and its output."""
     meta = (chunk_tile, chunk_s0, chunk_lo, chunk_hi)
     _check_inputs(records_t, meta, tile_w, tile_h)
-    acc_shape = (n_tiles + 1, ACC_ROWS, tile_w * tile_h)
+    tile_pix, n_chunks = tile_w * tile_h, chunk_tile.shape[0]
+    acc_shape = (n_tiles + 1, ACC_ROWS, tile_pix)
     kernels.require(final_accums, "final_accums", torch.float32, acc_shape)
     kernels.require(grad_accums, "grad_accums", torch.float32, acc_shape)
+    kernels.require(carry, "carry", torch.float32, (n_chunks, CARRY_ROWS, tile_pix))
     n_used = n_chunks_used.reshape(1).to(torch.int32).contiguous()
     kernels.require(n_used, "n_chunks_used", torch.int32, (1,))
-    n_chunks = chunk_tile.shape[0]
+    if not 1 <= chunk <= 1024:
+        raise ValueError(f"chunk of {chunk} entries: the K2 kernel takes 1 to 1024")
     grec = torch.empty((REC_WIDTH, n_chunks * chunk), dtype=torch.float32,
                        device=records_t.device)
     args = (records_t.data_ptr(), records_t.shape[1], chunk_tile.data_ptr(),
             chunk_s0.data_ptr(), chunk_lo.data_ptr(), chunk_hi.data_ptr(), n_chunks,
-            n_used.data_ptr(), final_accums.data_ptr(), grad_accums.data_ptr(),
-            grec.data_ptr(), n_tiles, tiles_x, tile_w, tile_h, chunk,
-            kernels.stream_ptr(records_t.device))
-    return args, (records_t, *meta, n_used, final_accums, grad_accums, grec)
+            n_used.data_ptr(), carry.data_ptr(), final_accums.data_ptr(),
+            grad_accums.data_ptr(), grec.data_ptr(), n_tiles, tiles_x, tile_w, tile_h,
+            chunk, kernels.stream_ptr(records_t.device))
+    return args, (records_t, *meta, n_used, carry, final_accums, grad_accums, grec)
 
 
 def launch_backward(args, tensors):
@@ -203,9 +239,13 @@ def _groups(us, tile_pix, chunk):
 def composite_forward_plain(records_t, chunk_tile, chunk_s0, chunk_lo,
                             chunk_hi, n_chunks_used, n_tiles: int,
                             tiles_x: int, chunk: int = 512, tile_w: int = 32,
-                            tile_h: int = 16):
+                            tile_h: int = 16, return_carry: bool = False):
+    """The accumulators; with `return_carry` also the carry table (rows of
+    chunks that are not live stay zero)."""
     dev = records_t.device
     tile_pix = tile_w * tile_h
+    carry = torch.zeros((chunk_tile.shape[0] if return_carry else 0, CARRY_ROWS, tile_pix),
+                        device=dev)
     acc = torch.zeros((n_tiles + 1, tile_pix, 4), device=dev)
     t_state = torch.ones((n_tiles + 1, tile_pix), device=dev)
     live = torch.zeros((n_tiles + 1,), device=dev)
@@ -215,6 +255,9 @@ def composite_forward_plain(records_t, chunk_tile, chunk_s0, chunk_lo,
             if live_grp.numel() == 0:
                 continue
             tiles = chunk_tile[live_grp].long()
+            if return_carry:
+                carry[live_grp, :4] = acc[tiles].transpose(1, 2)
+                carry[live_grp, 4] = t_state[tiles]
             v = _chunk_block(records_t, live_grp, chunk_tile, chunk_s0,
                              chunk_lo, chunk_hi, t_state[tiles], tiles_x,
                              chunk, tile_w, tile_h)
@@ -226,14 +269,18 @@ def composite_forward_plain(records_t, chunk_tile, chunk_s0, chunk_lo,
     out[:, A_R:A_DEPTH + 1] = acc.transpose(1, 2)
     out[:, A_T] = t_state
     out[:, A_LIVE] = live[:, None]
-    return out
+    return (out, carry) if return_carry else out
 
 
 def composite_backward_plain(records_t, chunk_tile, chunk_s0, chunk_lo,
                              chunk_hi, n_chunks_used, final_accums,
                              grad_accums, n_tiles: int, tiles_x: int,
                              chunk: int = 512, tile_w: int = 32,
-                             tile_h: int = 16):
+                             tile_h: int = 16, carry=None):
+    """The grad table. Without `carry` the chunks of a tile are walked in
+    order, each from the state the one before left. With the carry table
+    every chunk starts from its own row instead (T from row 4, the prefix
+    as g . rows 0-3), the way K2 does."""
     dev = records_t.device
     tile_pix = tile_w * tile_h
     n_chunks = chunk_tile.shape[0]
@@ -250,14 +297,19 @@ def composite_backward_plain(records_t, chunk_tile, chunk_s0, chunk_lo,
             if live_grp.numel() == 0:
                 continue
             tiles = chunk_tile[live_grp].long()
+            g = g_rgbd[tiles]                                         # [G, P, 4]
+            if carry is None:
+                t_in, run_in = t_state[tiles], run[tiles]
+            else:
+                t_in = carry[live_grp, 4]
+                run_in = (carry[live_grp, :4].transpose(1, 2) * g).sum(-1)
             v = _chunk_block(records_t, live_grp, chunk_tile, chunk_s0,
-                             chunk_lo, chunk_hi, t_state[tiles], tiles_x,
+                             chunk_lo, chunk_hi, t_in, tiles_x,
                              chunk, tile_w, tile_h)
             rec, contrib, alpha = v["rec"], v["contrib"], v["alpha"]
-            g = g_rgbd[tiles]                                         # [G, P, 4]
             cd = torch.cat([rec[:, F_R:F_B + 1], rec[:, F_DEPTH:F_DEPTH + 1]], 1)
             cg = torch.einsum("gpc,gcl->gpl", g, cd)                  # [G, P, L]
-            prefix = run[tiles][:, :, None] + torch.cumsum(contrib * cg, dim=2)
+            prefix = run_in[:, :, None] + torch.cumsum(contrib * cg, dim=2)
             suffix = ccar[tiles][:, :, None] - prefix
             galpha = v["t_excl"] * cg - suffix / v["q"]
             keep = v["applied"] & (alpha > 0.0)

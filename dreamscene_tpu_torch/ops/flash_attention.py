@@ -29,12 +29,12 @@ exactly: bq = bk = the first of 512/256/128 dividing n
 is all of n.
 
 Which kernel variant a CUDA tensor takes is decided here, by type and
-shape alone (`kernel_variant`, `fwd_config`, `dkv_config`): bfloat16
-operands with a head dim that is a multiple of 16 take the tensor-core
-kernels (wgmma or mma.sync on bfloat16 tiles; "tc"); float32 operands, for which
-tensor cores have no product at float32 accuracy, and other bfloat16 head
-dims take the CUDA-core kernels ("scalar"). The dQ kernel has the scalar
-variant only. Nothing is caught: a launch that fails raises.
+shape alone (`kernel_variant`, `fwd_config`, `dkv_config`, `dq_config`):
+bfloat16 operands with a head dim that is a multiple of 16 take the
+tensor-core kernels (wgmma or mma.sync on bfloat16 tiles; "tc"); float32
+operands, for which tensor cores have no product at float32 accuracy, and
+other bfloat16 head dims take the CUDA-core kernels ("scalar"). All three
+kernels have both variants. Nothing is caught: a launch that fails raises.
 
 The forward takes q, k, v as any [b, h, n, d] views with unit stride in d
 (the modules pass transposed views of their [b, n, h*d] projections) and
@@ -65,6 +65,9 @@ _SCALAR_FWD = {64: (128, 64, 64), 128: (128, 32, 64), 256: (256, 32, 32), 512: (
 _SCALAR_DKV = {64: (128, 64, 64), 128: (128, 32, 32), 256: (256, 32, 32), 512: (256, 16, 16)}
 # tensor-core dK/dV tiles per bucket: (threads, bq, bk), csrc TcCfg<D>
 _TC_DKV = {64: (128, 64, 64), 128: (256, 64, 64), 256: (256, 32, 64), 512: (256, 32, 32)}
+# dQ, csrc/flash_bwd_dq.cu: Cfg<D> and TcCfg<D>
+_SCALAR_DQ = {64: (128, 64, 64), 128: (128, 32, 32), 256: (256, 32, 32), 512: (256, 16, 16)}
+_TC_DQ = {64: (128, 64, 64), 128: (256, 64, 64), 256: (256, 64, 32), 512: (256, 64, 16)}
 
 
 def use_flash_attention(n: int, m: int, device) -> bool:
@@ -80,8 +83,8 @@ def head_bucket(d: int) -> int:
 
 
 def kernel_variant(dtype, d: int) -> str:
-    """"tc" (tensor cores) or "scalar" (CUDA cores) for the forward and
-    dK/dV kernels, from the operand type and head dim alone."""
+    """"tc" (tensor cores) or "scalar" (CUDA cores) for the three kernels,
+    from the operand type and head dim alone."""
     return "tc" if dtype == torch.bfloat16 and d % 16 == 0 else "scalar"
 
 
@@ -115,6 +118,18 @@ def dkv_config(dtype, d: int) -> dict:
     else:
         nt, bq, bk = _TC_DKV[D]
         smem = (2 * bk + 4 * bq) * D * 2 + 2 * bk * (bq + 8) * 2
+    return dict(variant=variant, design=variant, bucket=D, bq=bq, bk=bk, threads=nt, smem=smem)
+
+
+def dq_config(dtype, d: int) -> dict:
+    """The dQ kernel's variant and tiling (mirrors csrc/flash_bwd_dq.cu)."""
+    D, variant = head_bucket(d), kernel_variant(dtype, d)
+    if variant == "scalar":
+        nt, bq, bk = _SCALAR_DQ[D]
+        smem = 4 * ((2 * bq + 2 * bk) * (D + 1) + bq * (bk + 1) + 3 * bq)
+    else:
+        nt, bq, bk = _TC_DQ[D]
+        smem = (2 * bq + 4 * bk) * D * 2 + bq * (bk + 8) * 2
     return dict(variant=variant, design=variant, bucket=D, bq=bq, bk=bk, threads=nt, smem=smem)
 
 
@@ -252,12 +267,14 @@ def launch_bwd_dkv(q, k, v, l, m, do, di, dk, dv, scale: float) -> None:
 def launch_bwd_dq(q, k, v, l, m, do, di, dq, scale: float) -> None:
     """The dQ kernel alone, into a preallocated dq."""
     b, h, n, d = q.shape
+    tc = kernel_variant(q.dtype, d) == "tc"
     code = kernels.lib().ds_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), l.data_ptr(), m.data_ptr(), do.data_ptr(),
         di.data_ptr(), dq.data_ptr(), b * h, n, d, float(scale),
-        int(q.dtype == torch.bfloat16), kernels.stream_ptr(q.device))
+        int(q.dtype == torch.bfloat16), int(tc), kernels.stream_ptr(q.device))
     kernels.check(code, "flash_bwd_dq")
     kernels.COUNTS["flash_bwd_dq"] += 1
+    kernels.COUNTS["flash_bwd_dq.tc"] += int(tc)
 
 
 def flash_fwd(q, k, v, scale: float):

@@ -6,8 +6,9 @@ Port of dreamscene_tpu/ops/rasterizer.py:
                   radii [N], visibility_filter [N], n_dropped, n_entries}
 
 Pipeline: project (autograd) -> bin (integer plumbing, no grad) ->
-`GatherComposite` (record gather + K1; its backward runs K2 and reduces
-the per-entry grad table back to splats) -> image assembly (autograd).
+`GatherComposite` (record gather + K1, which also leaves the per-chunk
+carry table for K2; its backward runs K2 and reduces the per-entry grad
+table back to splats) -> image assembly (autograd).
 The screen-space mean gradient for densification comes through the
 zero-valued `means2d_probe` input, as in the JAX package; `score_render`
 takes each splat's importance as the gradient of a zero colour probe.
@@ -24,7 +25,7 @@ from dreamscene_tpu_torch.ops.composite import (
     N_LIVE_FIELDS,
     REC_WIDTH,
     composite_backward,
-    composite_forward,
+    composite_forward_carry,
 )
 from dreamscene_tpu_torch.ops.projection import project_gaussians
 
@@ -61,22 +62,22 @@ class GatherComposite(torch.autograd.Function):
                 n_chunks_used, n_tiles, tiles_x, chunk, tile_w, tile_h):
         records_t = rec_n.index_select(0, gid_pad.long()).t().contiguous()
         meta = (chunk_tile, chunk_s0, chunk_lo, chunk_hi, chunk_first, n_chunks_used)
-        out = composite_forward(records_t, *meta, n_tiles=n_tiles,
-                                tiles_x=tiles_x, chunk=chunk, tile_w=tile_w,
-                                tile_h=tile_h)
-        ctx.save_for_backward(records_t, out, inv_perm, pos_of_entry, surv,
+        out, carry = composite_forward_carry(records_t, *meta, n_tiles=n_tiles,
+                                             tiles_x=tiles_x, chunk=chunk, tile_w=tile_w,
+                                             tile_h=tile_h)
+        ctx.save_for_backward(records_t, out, carry, inv_perm, pos_of_entry, surv,
                               seg_starts, *meta)
         ctx.static = (n_tiles, tiles_x, chunk, tile_w, tile_h)
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        (records_t, out, inv_perm, pos_of_entry, surv, seg_starts,
+        (records_t, out, carry, inv_perm, pos_of_entry, surv, seg_starts,
          *meta) = ctx.saved_tensors
         n_tiles, tiles_x, chunk, tile_w, tile_h = ctx.static
         grec_t = composite_backward(
             records_t, *meta, out, g_out.contiguous(), n_tiles=n_tiles,
-            tiles_x=tiles_x, chunk=chunk, tile_w=tile_w, tile_h=tile_h)
+            tiles_x=tiles_x, chunk=chunk, tile_w=tile_w, tile_h=tile_h, carry=carry)
         capacity = pos_of_entry.shape[0]
         u_used = meta[-1]
         n_live = surv.sum()

@@ -16,6 +16,12 @@ from dreamscene_tpu.ops.expand import expand_entries as j_expand
 from dreamscene_tpu_torch.ops import binning as tbin
 from dreamscene_tpu_torch.ops.expand import expand_entries as t_expand
 
+# One intra-op thread: the suite runs several worker processes at once, and
+# one OpenMP team of all cores per worker makes these small tensors wait on
+# each other (the six heaviest files of the port took 205 s on 8 cores with
+# 6 workers, 66 s with one thread each).
+torch.set_num_threads(1)
+
 INT_FIELDS = ["rank_sorted", "gid_sorted", "n_chunks_used", "chunk_tile",
               "chunk_s0", "chunk_lo", "chunk_hi", "chunk_first", "n_entries",
               "n_dropped", "perm", "inv_perm", "surv_counts", "seg_starts",

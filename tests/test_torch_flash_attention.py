@@ -31,6 +31,12 @@ from dreamscene_tpu.guidance import sd_flax
 from dreamscene_tpu_torch.guidance import sd_modules as sdm
 from dreamscene_tpu_torch.ops import flash_attention as fa
 
+# One intra-op thread: the suite runs several worker processes at once, and
+# one OpenMP team of all cores per worker makes these small tensors wait on
+# each other (the six heaviest files of the port took 205 s on 8 cores with
+# 6 workers, 66 s with one thread each).
+torch.set_num_threads(1)
+
 
 def _inputs(shape, seed):
     rng = np.random.default_rng(seed)
@@ -57,9 +63,13 @@ def _bf16_ulp(x):
     return 2.0 ** (e - 7)
 
 
-@pytest.mark.parametrize("shape,dtype", [((1, 2, 1024, 64), "float32"),
+# Three heads, not the two of tests/test_flash_attention.py::
+# test_gradient_parity: after a jax.vjp of the interpreted kernel at exactly
+# that test's shape and type, its jax.grad in the same process never
+# returns, and which files share a worker process is the scheduler's choice.
+@pytest.mark.parametrize("shape,dtype", [((1, 3, 1024, 64), "float32"),
                                          ((1, 1, 256, 512), "float32"),
-                                         ((1, 2, 1024, 64), "bfloat16")])
+                                         ((1, 3, 1024, 64), "bfloat16")])
 def test_flash_attention_matches_jax_kernel(shape, dtype):
     q, k, v, g = _inputs(shape, seed=shape[-1])
     scale = shape[-1] ** -0.5
@@ -114,10 +124,10 @@ def test_limits_raise(shape, dtype):
 ])
 def test_kernel_variant_and_tiles(d, dtype, variant, design):
     assert fa.kernel_variant(dtype, d) == variant
-    fwd, dkv = fa.fwd_config(dtype, d), fa.dkv_config(dtype, d)
-    assert fwd["variant"] == dkv["variant"] == variant
+    fwd, dkv, dq = fa.fwd_config(dtype, d), fa.dkv_config(dtype, d), fa.dq_config(dtype, d)
+    assert fwd["variant"] == dkv["variant"] == dq["variant"] == variant
     assert fwd["design"] == design
-    for cfg in (fwd, dkv):
+    for cfg in (fwd, dkv, dq):
         assert cfg["bucket"] == fa.head_bucket(d) >= d
         assert cfg["smem"] <= fa.SMEM_LIMIT == 232_448, cfg
         assert 128 % cfg["bq"] == 0 and 128 % cfg["bk"] == 0, cfg   # n % 128 == 0
@@ -125,6 +135,39 @@ def test_kernel_variant_and_tiles(d, dtype, variant, design):
     if variant == "tc":
         assert fwd["bq"] % 16 == 0 and fwd["bk"] % 16 == 0
         assert dkv["bucket"] % (dkv["threads"] // 32 * 16) == 0   # columns per warp
+        assert dq["bucket"] % (dq["threads"] // 32 * 16) == 0
+        assert dq["bq"] % 16 == 0 and dq["bk"] % 16 == 0
+
+
+# the dQ kernel's tiles per bucket (csrc/flash_bwd_dq.cu TcCfg / Cfg), for
+# both types and for head dims that are padded up to their bucket
+@pytest.mark.parametrize("d,dtype,variant,threads,bq,bk,smem", [
+    (64, torch.bfloat16, "tc", 128, 64, 64, 58_368),
+    (48, torch.bfloat16, "tc", 128, 64, 64, 58_368),
+    (16, torch.bfloat16, "tc", 128, 64, 64, 58_368),
+    (128, torch.bfloat16, "tc", 256, 64, 64, 107_520),
+    (96, torch.bfloat16, "tc", 256, 64, 64, 107_520),
+    (256, torch.bfloat16, "tc", 256, 64, 32, 136_192),
+    (512, torch.bfloat16, "tc", 256, 64, 16, 199_680),
+    (384, torch.bfloat16, "tc", 256, 64, 16, 199_680),
+    (64, torch.float32, "scalar", 128, 64, 64, 83_968),
+    (128, torch.float32, "scalar", 128, 32, 32, 70_656),
+    (256, torch.float32, "scalar", 256, 32, 32, 136_192),
+    (512, torch.float32, "scalar", 256, 16, 16, 132_608),
+    (384, torch.float32, "scalar", 256, 16, 16, 132_608),
+    (40, torch.bfloat16, "scalar", 128, 64, 64, 83_968),
+    (72, torch.bfloat16, "scalar", 128, 32, 32, 70_656),
+])
+def test_dq_config_tiles(d, dtype, variant, threads, bq, bk, smem):
+    cfg = fa.dq_config(dtype, d)
+    assert (cfg["variant"], cfg["threads"], cfg["bq"], cfg["bk"], cfg["smem"]) == (
+        variant, threads, bq, bk, smem)
+    assert cfg["smem"] <= fa.SMEM_LIMIT
+    assert cfg["design"] == variant
+    if variant == "tc":
+        # Q + dO resident, two stages of K and V, the padded ds tile
+        D = fa.head_bucket(d)
+        assert smem == (2 * bq + 4 * bk) * D * 2 + bq * (bk + 8) * 2
 
 
 def test_head_bucket():

@@ -32,6 +32,12 @@ from dreamscene_tpu_torch.ops import projection as tproj
 from dreamscene_tpu_torch.ops import quaternion as tq
 from dreamscene_tpu_torch.ops import sh as tsh
 
+# One intra-op thread: the suite runs several worker processes at once, and
+# one OpenMP team of all cores per worker makes these small tensors wait on
+# each other (the six heaviest files of the port took 205 s on 8 cores with
+# 6 workers, 66 s with one thread each).
+torch.set_num_threads(1)
+
 ATOL = 1e-6
 
 

@@ -32,6 +32,12 @@ from dreamscene_tpu_torch.cameras import Camera as TCamera
 from dreamscene_tpu_torch.guidance import sd_modules as sdm
 from dreamscene_tpu_torch.training import object_trainer as tot
 
+# One intra-op thread: the suite runs several worker processes at once, and
+# one OpenMP team of all cores per worker makes these small tensors wait on
+# each other (the six heaviest files of the port took 205 s on 8 cores with
+# 6 workers, 66 s with one thread each).
+torch.set_num_threads(1)
+
 FIELDS = ["xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity"]
 
 

@@ -22,6 +22,12 @@ from dreamscene_tpu.ops.reference import render_reference as j_reference
 from dreamscene_tpu_torch.ops.rasterizer import render as t_render
 from dreamscene_tpu_torch.ops.reference import render_reference as t_reference
 
+# One intra-op thread: the suite runs several worker processes at once, and
+# one OpenMP team of all cores per worker makes these small tensors wait on
+# each other (the six heaviest files of the port took 205 s on 8 cores with
+# 6 workers, 66 s with one thread each).
+torch.set_num_threads(1)
+
 BG = np.asarray([0.1, 0.2, 0.3], np.float32)
 KEYS = ["means3d", "scales", "quats", "opacities", "shs"]
 
@@ -152,3 +158,92 @@ def test_blocked_cumsum_matches_float64():
     x = torch.from_numpy(np.random.RandomState(3).randn(70000, 3).astype(np.float32))
     ref = np.cumsum(x.numpy().astype(np.float64), axis=0)
     np.testing.assert_allclose(blocked_cumsum(x).numpy(), ref, atol=2e-3, rtol=1e-5)
+
+
+def _binned_cpu(n, seed, w, h, tw, th, chunk):
+    """Project and bin one seeded scene on the CPU: what K1/K2 take."""
+    from dreamscene_tpu_torch.ops import binning
+    from dreamscene_tpu_torch.ops.projection import project_gaussians
+
+    scene, cam = to_torch(make_scene(n, seed)), to_torch(cam_np(make_camera(w, h)))
+    with torch.no_grad():
+        sp = project_gaussians(scene["means3d"], scene["scales"], scene["quats"],
+                               scene["opacities"], scene["shs"], cam["viewmatrix"],
+                               cam["projmatrix"], cam["campos"], cam["tanfovx"], cam["tanfovy"],
+                               w, h, sh_degree=2)
+        capacity = 8 * n
+        b = binning.bin_splats(sp.means2d, sp.depths, sp.radii, sp.visible, w, h,
+                               capacity=capacity, chunk=chunk, conics=sp.conics,
+                               opacities=sp.opacities, tile_w=tw, tile_h=th)
+        rec_n = torch.cat([sp.means2d, sp.conics, sp.opacities[:, None], sp.colors,
+                           sp.depths[:, None], sp.means2d.new_zeros((n, 6))], 1)
+        cap_pad = binning.cdiv(capacity, 128) * 128 + chunk
+        gid_pad = torch.cat([b.gid_sorted, torch.zeros(cap_pad - capacity, dtype=torch.int32)])
+        records_t = rec_n.index_select(0, gid_pad.long()).t().contiguous()
+    tiles_x = binning.cdiv(w, tw)
+    geo = dict(n_tiles=tiles_x * binning.cdiv(h, th), tiles_x=tiles_x, chunk=chunk,
+               tile_w=tw, tile_h=th)
+    meta = (b.chunk_tile, b.chunk_s0, b.chunk_lo, b.chunk_hi, b.n_chunks_used)
+    return records_t, meta, b.chunk_first, geo
+
+
+@pytest.mark.parametrize("tw,th,w,h", [(16, 16, 48, 48), (32, 16, 64, 48)])
+def test_carry_table_restarts_each_chunk(tw, th, w, h):
+    """K2 walks one chunk per CTA from the carry table K1 leaves (T and the
+    accumulators at each chunk's start). The plain versions hold that
+    bookkeeping: the table's rows are the sequential walk's states, and a
+    backward that restarts every chunk from its row gives the gradients of
+    the walk in order. Both are also held against the JAX kernels in
+    interpret mode, which keep a per-chunk T table of their own (emit_tcar):
+    T at each chunk's start, and the grad table of the backward that starts
+    every chunk from it, at this file's gradient tolerance."""
+    from dreamscene_tpu.ops import composite as JC
+    from dreamscene_tpu_torch.ops import composite as C
+
+    rt, meta, chunk_first, geo = _binned_cpu(600, 11, w, h, tw, th, chunk=128)
+    ct, _, lo, hi, n_used = meta
+    out = C.composite_forward_plain(rt, *meta, **geo)
+    out_c, carry = C.composite_forward_plain(rt, *meta, **geo, return_carry=True)
+    assert torch.equal(out, out_c)
+    assert carry.shape == (ct.shape[0], C.CARRY_ROWS, tw * th)
+    n_u = int(n_used)
+    live = [u for u in range(n_u) if int(hi[u]) > int(lo[u])]
+    per_tile = torch.bincount(ct[live].long())
+    assert int(per_tile.max()) >= 3, "the scene must give some tile several chunks"
+    first = {}
+    for u in live:
+        first.setdefault(int(ct[u]), u)
+    for t, u in first.items():      # a tile's first chunk starts from the background state
+        assert torch.equal(carry[u, :4], torch.zeros_like(carry[u, :4]))
+        assert torch.equal(carry[u, 4], torch.ones_like(carry[u, 4]))
+    for u0, u1 in zip(live, live[1:]):
+        if int(ct[u0]) == int(ct[u1]):     # T only falls along a tile, never under the stop rule
+            assert (carry[u1, 4] <= carry[u0, 4]).all()
+    assert (carry[live, 4] >= C.TRANSMITTANCE_EPS).all()
+    last = {int(ct[u]): u for u in live}
+    for t, u in last.items():       # the last chunk's T is at least the final T
+        assert (carry[u, 4] >= out[t, C.A_T]).all()
+
+    g_out = torch.from_numpy(np.random.RandomState(3).randn(*out.shape).astype(np.float32))
+    g_seq = C.composite_backward_plain(rt, *meta, out, g_out, **geo)
+    g_car = C.composite_backward_plain(rt, *meta, out, g_out, **geo, carry=carry)
+    scale = float(g_seq.abs().max())
+    assert scale > 0
+    # the prefix at a chunk's start is formed as g . accumulators instead of
+    # being summed entry by entry: same value up to float32 rounding
+    np.testing.assert_allclose(g_car.numpy() / scale, g_seq.numpy() / scale, atol=2e-6)
+    # the public wrapper ignores the table on the CPU (the plain walk needs none)
+    g_pub = C.composite_backward(rt, *meta[:4], None, n_used, out, g_out, **geo, carry=carry)
+    assert torch.equal(g_pub, g_seq)
+
+    jmeta = [jnp.asarray(x.numpy()) for x in (*meta[:4], chunk_first, n_used)]
+    j_out, tcar = JC.composite_forward(jnp.asarray(rt.numpy()), *jmeta, **geo, interpret=True,
+                                       emit_tcar=True)
+    close(out[:, :6], j_out[:, :6], "accumulators")
+    close(carry[live, 4], np.asarray(tcar)[live], "T at each live chunk's start")
+    j_g = JC.composite_backward(jnp.asarray(rt.numpy()), *jmeta, j_out, jnp.asarray(g_out.numpy()),
+                                **geo, interpret=True, tcar=tcar)
+    used = n_u * geo["chunk"]      # the JAX kernel writes the live chunks' columns only
+    np.testing.assert_allclose(g_car.numpy()[:, :used] / scale,
+                               np.asarray(j_g)[:, :used] / scale, atol=2e-4)
+    assert not g_car[:, used:].any()
