@@ -12,9 +12,12 @@ Phases (any failure exits non-zero; nothing is caught):
      K1 rows R,G,B,DEPTH,T at atol 1e-5 / rtol 1e-4 and LIVE equal, its
      per-chunk carry table (T and accumulators at each chunk's start, from
      which K2 walks one chunk per CTA) held to the plain version's the same
-     way; K2 within 1e-4 of max|g| and bit-identical across two runs. The
-     per-tile distribution of chunks and live entries of each scene. Times
-     of kernel and plain version at full width;
+     way, both bit-identical across two launches, and the tile order its
+     first kernel computes equal to `tile_order`'s; K2 within 1e-4 of max|g|
+     and bit-identical across two runs. The per-tile distribution of chunks
+     and live entries of each scene. Times of kernel and plain version at
+     full width, and for K3 the host time of its launch and of a whole
+     expand_entries call;
   2b. K4 (flash attention forward, dK/dV, dQ) against its plain versions
      at every shape the main path gives it (bf16, the tensor-core variant
      of all three kernels) plus one f32 case (the CUDA-core variant), and
@@ -124,6 +127,20 @@ def cuda_time(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def host_time(fn, reps):
+    """Mean host ms per call over `reps` calls without a sync (what the
+    caller's thread spends issuing the work), after one warm call and a
+    sync; the queue is drained after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def make_scene(n_pts, width, height, seed):
     """A seeded full-path scene with a fresh init-cloud cache directory."""
     from dreamscene_tpu_torch.bench import scenes
@@ -186,6 +203,12 @@ def check_kernels(label, inp, timing):
     ok = torch.isclose(a, b, atol=1e-5, rtol=1e-4).all().item()
     assert ok, f"{label}: composite_fwd max abs err {err_k1}"
     assert torch.equal(out_k[:, 5], out_p[:, 5]), f"{label}: LIVE rows differ"
+    # K1's first kernel: the busiest-first tile order, against its plain version
+    k1_args, k1_keep = C.prepare_forward(rt, *meta[:4], inp["n_tiles"], inp["tiles_x"],
+                                         inp["tile_w"], inp["tile_h"])
+    C.launch_forward(k1_args, k1_keep)
+    assert torch.equal(k1_keep[-3], C.tile_order(meta[0], meta[2], meta[3], inp["n_tiles"])), \
+        f"{label}: K1 tile order differs from plain"
     # the carry table: only the rows of live chunks are written
     live_u = torch.nonzero((meta[3] > meta[2])[:int(meta[5])]).flatten()
     err_carry = float((carry_k[live_u] - carry_p[live_u]).abs().max()) if live_u.numel() else 0.0
@@ -201,13 +224,15 @@ def check_kernels(label, inp, timing):
     gk2 = C.composite_backward(rt, *meta, out_2, g_out, **geo, carry=carry_2)
     gp = C.composite_backward_plain(rt, *meta[:4], meta[5], out_k, g_out, **geo)
     torch.cuda.synchronize()
+    assert torch.equal(out_k, out_2) and torch.equal(carry_k[live_u], carry_2[live_u]), \
+        f"{label}: composite_fwd not bit-reproducible"
     assert torch.equal(gk1, gk2), f"{label}: composite_bwd not bit-reproducible"
     err_k2 = float((gk1 - gp).abs().max())
     gmax = float(gp.abs().max())
     assert err_k2 <= 1e-4 * gmax, f"{label}: composite_bwd err {err_k2} vs max|g| {gmax}"
     live, pairs = pair_count(inp)
     log(f"[kernels] {label}: n_entries {int(inp['binned'].n_entries)} live {live} "
-        f"pairs {pairs}: expand bit-equal, fwd err {err_k1:.3g}, "
+        f"pairs {pairs}: expand bit-equal, fwd err {err_k1:.3g}, fwd bit-reproducible, "
         f"bwd err {err_k2:.3g} (max|g| {gmax:.3g}), bwd bit-reproducible")
     errs = {"expand_entries": err_k3, "composite_fwd": err_k1, "composite_bwd": err_k2}
     if not timing:
@@ -229,6 +254,10 @@ def check_kernels(label, inp, timing):
     rows["expand_entries"] = dict(
         ms=cuda_time(lambda: E.launch_expand(*k3), 50),
         plain_ms=cuda_time(lambda: E.expand_entries_plain(**kw), 5),
+        # host wall time per call, no sync: the launch alone, and a whole
+        # expand_entries call (validation, allocation and launch)
+        launch_host_ms=host_time(lambda: E.launch_expand(*k3), 200),
+        call_host_ms=host_time(lambda: E.expand_entries(**kw), 200),
         bytes=6 * n * 4 + 2 * cap * 4, ops=0)
     rows["composite_fwd"] = dict(
         ms=cuda_time(lambda: C.launch_forward(*k1), 20),
@@ -248,8 +277,9 @@ def check_kernels(label, inp, timing):
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     log(f"[kernels] full-width times: " + json.dumps(
-        {k: {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"]}
-             for k, v in rows.items()}))
+        {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms", "launch_host_ms",
+                                  "call_host_ms") if kk in v}
+         for k, v in rows.items()}))
     return errs, rows
 
 
@@ -596,6 +626,7 @@ KERNEL_BUCKETS = (("flash_fwd", "K4 flash_fwd"), ("flash_bwd_dkv", "K4 flash_bwd
                   ("flash_bwd_dq", "K4 flash_bwd_dq"),
                   ("composite_bwd_kernel", "K2 composite_bwd"),
                   ("composite_fwd_kernel", "K1 composite_fwd"),
+                  ("tile_order_kernel", "K1 composite_fwd"),
                   ("expand_kernel", "K3 expand"),
                   ("fprop", "convolution"), ("dgrad", "convolution"),
                   ("wgrad", "convolution"),
@@ -769,7 +800,8 @@ def main():
                       "source": src, "replaces": rep,
                       "launches": counts[k], "max_abs_err": errs[k], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                      "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+                      "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+                      **{kk: r[kk] for kk in ("launch_host_ms", "call_host_ms") if kk in r}})
     log(json.dumps({"k4_shapes": {lab: {kk: v for kk, v in r.items() if kk != "bound"}
                                   for lab, r in k4.items()}}))
     log(json.dumps({"kernels": table}))

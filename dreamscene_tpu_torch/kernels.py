@@ -47,16 +47,23 @@ _S = ctypes.POINTER(ctypes.c_longlong)   # three element strides: batch, head, r
 # launcher name -> ctypes argument types (must match csrc/*.cu)
 _SIGNATURES = {
     "ds_expand_entries": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,   # offs_c basenx offsets perm caps0-2 wend n_entries
+        _P, _P, _P, _P, _P, _P, _P,            # offsets basenx perm caps0-2 n_entries
         _P, _P,                                # key gid
-        _I, _I, _I, _I, _I, _I, _I, _I,        # capacity n n_tiles tiles_x shift rank_drop block use_cull
-        _I, _I, _F, _F, _F, _F, _F,            # tile_w tile_h cxo cyo hwx hwy inv_tiles_x
+        _P,                                    # geometry (ops/expand.py::ExpandGeo)
         _P,                                    # stream
     ],
     "ds_composite_fwd": [
         _P, _I, _P, _P, _P, _P, _I,            # rec cap_pad chunk_tile s0 lo hi n_chunks
         _P, _P,                                # out carry
         _I, _I, _I, _I,                        # n_tiles tiles_x tile_w tile_h
+        _P,                                    # tile-order scratch
+        _P,                                    # stream
+    ],
+    "ds_composite_fwd_timed": [                # bench/k1_variants.py only
+        _P, _I, _P, _P, _P, _P, _I,            # rec cap_pad chunk_tile s0 lo hi n_chunks
+        _P, _P,                                # out carry
+        _I, _I, _I, _I, _I,                    # n_tiles tiles_x tile_w tile_h warp_w
+        _P, _P, _I,                            # tile_order unit_ns skip_chunks
         _P,                                    # stream
     ],
     "ds_composite_bwd": [

@@ -98,8 +98,9 @@ def composite_forward_carry(records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
 
 def prepare_forward(records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
                     n_tiles, tiles_x, tile_w, tile_h):
-    """Validate and allocate: the K1 launcher's arguments and its outputs
-    (the carry table, then the accumulators)."""
+    """Validate and allocate: the K1 launcher's arguments and its buffers
+    (inputs, the tile-order scratch its first kernel fills, the carry
+    table, then the accumulators)."""
     meta = (chunk_tile, chunk_s0, chunk_lo, chunk_hi)
     _check_inputs(records_t, meta, tile_w, tile_h)
     tile_pix, n_chunks = tile_w * tile_h, chunk_tile.shape[0]
@@ -107,11 +108,22 @@ def prepare_forward(records_t, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
                       device=records_t.device)
     carry = torch.empty((n_chunks, CARRY_ROWS, tile_pix), dtype=torch.float32,
                         device=records_t.device)
+    order = torch.empty((n_tiles + 1,), dtype=torch.int32, device=records_t.device)
     args = (records_t.data_ptr(), records_t.shape[1], chunk_tile.data_ptr(),
             chunk_s0.data_ptr(), chunk_lo.data_ptr(), chunk_hi.data_ptr(),
             n_chunks, out.data_ptr(), carry.data_ptr(), n_tiles, tiles_x, tile_w, tile_h,
-            kernels.stream_ptr(records_t.device))
-    return args, (records_t, *meta, carry, out)
+            order.data_ptr(), kernels.stream_ptr(records_t.device))
+    return args, (records_t, *meta, order, carry, out)
+
+
+def tile_order(chunk_tile, chunk_lo, chunk_hi, n_tiles: int):
+    """The n_tiles + 1 tiles by live entries, most first, ties in tile
+    order: the order in which K1 dispatches its warps (its first kernel
+    computes it on the card), so that the longest walks start first and
+    spread over the SMs. The same function in plain PyTorch."""
+    cost = torch.zeros((n_tiles + 1,), dtype=torch.int32, device=chunk_tile.device)
+    cost.index_add_(0, chunk_tile.long(), (chunk_hi - chunk_lo).clamp_min(0))
+    return torch.argsort(cost, descending=True, stable=True).to(torch.int32)
 
 
 def launch_forward(args, tensors):

@@ -11,12 +11,17 @@ The JAX kernel recovers each slot's owner inside a window of splat rows
 per block of `block` slots; for slots past the last entry that window
 decides which (empty) splat owns them. Those slots still carry a rank and
 a gid into the entry sort, so both versions here reproduce the window
-limit (`_window_ends`) to stay bit-equal.
+limit (`_window_ends`) to stay bit-equal; the CUDA kernel derives the same
+window ends per block on the card.
 
-CUDA tensors go to csrc/expand.cu; CPU tensors to `expand_entries_plain`.
+CUDA tensors go to csrc/expand.cu, one launch per call; CPU tensors to
+`expand_entries_plain`.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -24,6 +29,7 @@ import torch
 from dreamscene_tpu_torch import kernels
 
 BLOCK = 2048        # slots per window block (the JAX kernel's default)
+SLOTS = 256         # slots per CUDA block of K3 (csrc/expand.cu)
 CAP_PAD = 0.3       # cull-test half-extent padding beyond (tile/2 - 0.5) px
 
 
@@ -57,7 +63,7 @@ def expand_entries(offsets, basenx, perm, n_entries, capacity: int, n: int,
                    tile_h: int = 16):
     """Per-entry (sort_key, original splat id), each [capacity] int32.
     offsets/basenx/perm and the 3 capsule channels are [N] int32 in rank
-    order; n_entries is a 0-dim int32 tensor."""
+    order; n_entries is a one-element int32 tensor."""
     if offsets.device.type == "cpu":
         return expand_entries_plain(
             offsets, basenx, perm, n_entries, capacity, n, n_tiles, tiles_x,
@@ -67,35 +73,56 @@ def expand_entries(offsets, basenx, perm, n_entries, capacity: int, n: int,
         rank_drop, caps, block, tile_w, tile_h))
 
 
+class ExpandGeo(ctypes.Structure):
+    """The per-geometry scalars of a K3 launch (csrc/expand.cu, same fields
+    in the same order)."""
+    _fields_ = ([(k, ctypes.c_int) for k in (
+        "capacity", "n", "n_tiles", "tiles_x", "shift", "rank_drop", "block", "use_cull",
+        "tile_w", "tile_h")]
+        + [(k, ctypes.c_float) for k in ("cxo", "cyo", "hwx", "hwy", "inv_tiles_x")])
+
+
+@functools.lru_cache(maxsize=64)
+def expand_geometry(capacity, n, n_tiles, tiles_x, shift, rank_drop, block, use_cull,
+                    tile_w, tile_h) -> ExpandGeo:
+    """The launch's constants, built once per geometry."""
+    if block < SLOTS or block % SLOTS:
+        raise ValueError(f"block of {block} slots: K3 takes a positive multiple of {SLOTS}")
+    c = _cull_consts(tile_w, tile_h, tiles_x)
+    return ExpandGeo(capacity, n, n_tiles, tiles_x, shift, rank_drop, block, int(use_cull),
+                     tile_w, tile_h, c["cxo"], c["cyo"], c["hwx"], c["hwy"], c["inv_tiles_x"])
+
+
 def prepare_expand(offsets, basenx, perm, n_entries, capacity, n, n_tiles, tiles_x,
                    shift, rank_drop, caps, block, tile_w, tile_h):
-    """Validate and allocate: returns the launcher's arguments and the
-    (key, gid) outputs it fills."""
-    dev = offsets.device
+    """Validate and allocate: the launcher's arguments, and the (key, gid)
+    outputs it fills followed by the geometry the arguments point to. The
+    kernel derives the window ends and clamps the offsets itself, so no
+    torch op runs here but the two allocations."""
     use_cull = caps is not None
-    caps = list(caps) if use_cull else [offsets, offsets, offsets]
+    caps = tuple(caps) if use_cull else (offsets,) * 3
     for name, t in (("offsets", offsets), ("basenx", basenx), ("perm", perm),
                     ("caps0", caps[0]), ("caps1", caps[1]), ("caps2", caps[2])):
         kernels.require(t, name, torch.int32, (n,))
-    offs_c = torch.clamp_max(offsets, capacity).contiguous()
-    wend = _window_ends(offsets, capacity, block)
-    nent = n_entries.reshape(1).to(torch.int32).contiguous()
+    kernels.require(n_entries, "n_entries", torch.int32)
+    if n_entries.numel() != 1:
+        raise ValueError(f"n_entries: expected one element, got shape {tuple(n_entries.shape)}")
+    geo = expand_geometry(capacity, n, n_tiles, tiles_x, shift, rank_drop, block, use_cull,
+                          tile_w, tile_h)
+    dev = offsets.device
     key = torch.empty((capacity,), dtype=torch.int32, device=dev)
     gid = torch.empty((capacity,), dtype=torch.int32, device=dev)
-    c = _cull_consts(tile_w, tile_h, tiles_x)
-    tensors = (offs_c, basenx, offsets, perm, *caps, wend, nent, key, gid)
-    scalars = (capacity, n, n_tiles, tiles_x, shift, rank_drop, block, int(use_cull),
-               tile_w, tile_h, c["cxo"], c["cyo"], c["hwx"], c["hwy"], c["inv_tiles_x"])
-    return tensors, scalars
+    args = (offsets.data_ptr(), basenx.data_ptr(), perm.data_ptr(), caps[0].data_ptr(),
+            caps[1].data_ptr(), caps[2].data_ptr(), n_entries.data_ptr(), key.data_ptr(),
+            gid.data_ptr(), ctypes.addressof(geo), kernels.stream_ptr(dev))
+    return args, (key, gid, geo)
 
 
-def launch_expand(tensors, scalars):
+def launch_expand(args, outs):
     """Launch K3 on the current stream; returns (key, gid)."""
-    code = kernels.lib().ds_expand_entries(
-        *[t.data_ptr() for t in tensors], *scalars, kernels.stream_ptr(tensors[0].device))
-    kernels.check(code, "expand_entries")
+    kernels.check(kernels.lib().ds_expand_entries(*args), "expand_entries")
     kernels.COUNTS["expand_entries"] += 1
-    return tensors[-2], tensors[-1]
+    return outs[0], outs[1]
 
 
 def expand_entries_plain(offsets, basenx, perm, n_entries, capacity: int,

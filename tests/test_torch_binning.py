@@ -6,6 +6,9 @@ pos_of_entry, n_entries, n_dropped), at 16x16 and 32x16 tiles, with the
 capsule cull on and off and on the coarse-key (rank_drop) path.
 """
 
+import bisect
+import ctypes
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -14,6 +17,7 @@ import torch
 from dreamscene_tpu.ops import binning as jbin
 from dreamscene_tpu.ops.expand import expand_entries as j_expand
 from dreamscene_tpu_torch.ops import binning as tbin
+from dreamscene_tpu_torch.ops import expand as texp
 from dreamscene_tpu_torch.ops.expand import expand_entries as t_expand
 
 # One intra-op thread: the suite runs several worker processes at once, and
@@ -128,3 +132,124 @@ def test_max_chunks_matches():
     for cap, nt, ch in [(240000, 512, 512), (6000, 24, 128), (1, 1, 128)]:
         assert tbin.max_chunks(cap, nt, ch) == jbin.max_chunks(cap, nt, ch)
     assert tbin.max_chunks(240000, 512, 512) == 1108
+
+
+# ---------------------------------------------------------------------------
+# K3's per-block bookkeeping (csrc/expand.cu), mirrored line by line in Python
+# with C's integer semantics; the kernel itself runs only on the card
+# (tests/test_torch_kernels_cuda.py).
+
+def c_div(a: int, b: int) -> int:
+    """C's `/` on ints: truncates toward zero (Python's // floors)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def kernel_window_end(offsets, e0: int, block: int) -> int:
+    """The window end the CUDA block holding slot e0 derives: two
+    upper-bound searches over the unclamped offsets, then
+    w0a + 128 * clamp(ceil((ws_end - w0a) / 128), 1, (block + 256) / 128)."""
+    bstart = c_div(e0, block) * block
+    ws0 = max(bisect.bisect_right(offsets, bstart) - 1, 0)
+    w0a = c_div(ws0, 128) * 128
+    ws_end = bisect.bisect_right(offsets, bstart + block - 1)
+    assert ws_end - w0a >= 0          # so that the truncating division rounds up
+    wlive = min(max(c_div(ws_end - w0a + 127, 128), 1), c_div(block + 256, 128))
+    return w0a + 128 * wlive
+
+
+def kernel_owners(offsets, capacity: int, e0: int):
+    """The owner count (upper bound over the clamped offsets) of every slot of
+    the CUDA block starting at e0, as the kernel finds it: the range
+    [r0, r1] of the block's first and last slot, then a search inside it."""
+    offs_c = [min(o, capacity) for o in offsets]
+    last = min(e0 + texp.SLOTS, capacity) - 1
+    r0 = bisect.bisect_right(offs_c, e0)
+    r1 = bisect.bisect_right(offs_c, last)
+    rows = offs_c[r0:r1]
+    return [r0 + bisect.bisect_right(rows, e) for e in range(e0, last + 1)], r1 - r0
+
+
+def _offsets(kind: str):
+    """(offsets, capacity) of one edge case; exclusive offsets are sorted."""
+    rng = np.random.RandomState(len(kind))
+    if kind == "random, tail of empty splats":
+        count = rng.randint(0, 9, 3000)
+        count[2400:] = 0
+        return np.cumsum(count) - count, 9000
+    if kind == "block starts before the first offset":
+        return 3000 + np.arange(0, 4000, 3), 6500
+    if kind == "a block inside one splat's run":
+        count = rng.randint(1, 4, 500)
+        count[100] = 5000
+        return np.cumsum(count) - count, 7000
+    if kind == "ws_end - w0a a multiple of 128":
+        return np.arange(0, 8 * 1000, 8), 8000        # 256 splats per 2048 slots
+    if kind == "capacity not a multiple of 2048":
+        count = rng.randint(0, 6, 2000)
+        return np.cumsum(count) - count, 5000
+    if kind == "offsets past capacity":
+        count = rng.randint(2, 7, 2000)
+        return np.cumsum(count) - count, 3000
+    raise KeyError(kind)
+
+
+OFFSET_CASES = ["random, tail of empty splats", "block starts before the first offset",
+                "a block inside one splat's run", "ws_end - w0a a multiple of 128",
+                "capacity not a multiple of 2048", "offsets past capacity"]
+
+
+@pytest.mark.parametrize("kind", OFFSET_CASES)
+def test_kernel_window_end_formula_matches_window_ends(kind):
+    offsets, capacity = _offsets(kind)
+    offsets = [int(o) for o in offsets]
+    block = texp.BLOCK
+    ref = texp._window_ends(torch.tensor(offsets, dtype=torch.int32), capacity, block)
+    got = [kernel_window_end(offsets, e0, block) for e0 in range(0, capacity, texp.SLOTS)]
+    want = [int(ref[e0 // block]) for e0 in range(0, capacity, texp.SLOTS)]
+    assert got == want
+    if kind == "block starts before the first offset":
+        assert bisect.bisect_right(offsets, 0) == 0
+    if kind == "ws_end - w0a a multiple of 128":
+        assert (bisect.bisect_right(offsets, block - 1) - 0) % 128 == 0
+    if kind == "capacity not a multiple of 2048":
+        assert capacity % block != 0
+
+
+@pytest.mark.parametrize("kind", OFFSET_CASES)
+def test_kernel_owner_search_matches_searchsorted(kind):
+    """Per CUDA block, r0 + a search inside the block's owner range gives
+    every slot's upper bound over the clamped offsets (what the plain
+    version and the JAX kernel use); some cases have ranges wider than the
+    1024 rows a block stages."""
+    offsets, capacity = _offsets(kind)
+    offs_c = torch.clamp_max(torch.tensor(offsets, dtype=torch.int32), capacity)
+    want = torch.searchsorted(offs_c, torch.arange(capacity, dtype=torch.int32),
+                              right=True).tolist()
+    got, widest = [], 0
+    for e0 in range(0, capacity, texp.SLOTS):
+        owners, width = kernel_owners([int(o) for o in offsets], capacity, e0)
+        got += owners
+        widest = max(widest, width)
+    assert got == want
+    if kind == "random, tail of empty splats":
+        assert widest > 0
+
+
+def test_expand_geometry_struct():
+    """The ctypes struct K3 takes has csrc/expand.cu's layout (10 ints,
+    then 5 floats, no padding) and is built once per geometry; a window
+    block that no whole number of CUDA blocks fills is refused."""
+    assert ctypes.sizeof(texp.ExpandGeo) == 60
+    names = [f[0] for f in texp.ExpandGeo._fields_]
+    assert names[:10] == ["capacity", "n", "n_tiles", "tiles_x", "shift", "rank_drop",
+                          "block", "use_cull", "tile_w", "tile_h"]
+    assert texp.ExpandGeo.cxo.offset == 40
+    g = texp.expand_geometry(6000, 500, 24, 6, 10, 0, 2048, True, 32, 16)
+    assert g is texp.expand_geometry(6000, 500, 24, 6, 10, 0, 2048, True, 32, 16)
+    c = texp._cull_consts(32, 16, 6)
+    assert (g.capacity, g.block, g.use_cull, g.tile_w) == (6000, 2048, 1, 32)
+    assert np.float32(g.inv_tiles_x) == np.float32(c["inv_tiles_x"])
+    assert np.float32(g.hwy) == np.float32(c["hwy"])
+    with pytest.raises(ValueError):
+        texp.expand_geometry(6000, 500, 24, 6, 10, 0, 1000, True, 32, 16)

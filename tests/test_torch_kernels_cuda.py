@@ -57,6 +57,113 @@ def test_composite_bwd_skewed_scenes(card, tile_w, tile_h, kind, shrink):
     cs.check_kernels(f"pytest {kind} {tile_w}x{tile_h}", inp, timing=False)
 
 
+# K1 runs one warp per 32 pixels: its accumulators and live carry rows are
+# bit-identical across two launches (no atomics, no order that depends on
+# scheduling), on the skewed scenes above, at both tile shapes
+@pytest.mark.parametrize("tile_w,tile_h", [(32, 16), (16, 16)])
+@pytest.mark.parametrize("shrink", [0.04, 0.35])
+def test_composite_fwd_bit_identical_across_launches(card, tile_w, tile_h, shrink):
+    import math
+
+    import chip_smoke as cs
+    from dreamscene_tpu_torch.bench import scenes
+    from dreamscene_tpu_torch.ops import composite as C
+
+    st, cam = cs.make_scene(4000, 192, 128, seed=9)
+    st.params["xyz"].mul_(shrink)
+    st.params["scaling"].add_(math.log(shrink))
+    inp = scenes.binned_inputs(st, cam, tile_w, tile_h, chunk=128)
+    rt, meta = inp["records_t"], inp["meta"]
+    geo = dict(n_tiles=inp["n_tiles"], tiles_x=inp["tiles_x"], chunk=inp["chunk"],
+               tile_w=tile_w, tile_h=tile_h)
+    live_u = torch.nonzero((meta[3] > meta[2])[:int(meta[5])]).flatten()
+    assert live_u.numel() > 0
+    out_1, carry_1 = C.composite_forward_carry(rt, *meta, **geo)
+    out_1, carry_1 = out_1.clone(), carry_1[live_u].clone()
+    out_2, carry_2 = C.composite_forward_carry(rt, *meta, **geo)
+    torch.cuda.synchronize()
+    assert torch.equal(out_1, out_2)
+    assert torch.equal(carry_1, carry_2[live_u])
+
+
+def test_kernels_match_plain_versions_one_warp_tiles(card):
+    """8 x 4 tiles: one warp is a whole tile (K1), one CTA of one warp per
+    chunk (K2)."""
+    import chip_smoke as cs
+    from dreamscene_tpu_torch.bench import scenes
+
+    st, cam = cs.make_scene(3000, 128, 96, seed=5)
+    inp = scenes.binned_inputs(st, cam, 8, 4, chunk=128)
+    errs, _ = cs.check_kernels("pytest 8x4", inp, timing=False)
+    assert errs["expand_entries"] == 0.0
+
+
+def test_expand_one_kernel_per_call(card):
+    """A CUDA expand_entries call issues exactly one device kernel (the
+    window ends, the clamp and n_entries are read inside K3)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.bench import scenes
+    from dreamscene_tpu_torch.ops import expand as E
+
+    st, cam = cs.make_scene(3000, 128, 96, seed=5)
+    kw = scenes.binned_inputs(st, cam, 32, 16)["ex"]["kwargs"]
+    E.expand_entries(**kw)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            E.expand_entries(**kw)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3 and all("expand_kernel" in n for n in names), names
+    assert kernels.COUNTS["expand_entries"] == 3
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_expand_owner_range_overflows_shared_buffer(card, cull):
+    """Blocks whose owner range exceeds the staged rows (long runs of empty
+    splats between a few huge ones, and the tail) search in device memory
+    and stay bit-equal to the plain version."""
+    import numpy as np
+
+    from dreamscene_tpu_torch.ops import expand as E
+
+    rng = np.random.RandomState(3 + cull)
+    n, tiles_x, n_tiles = 12_000, 16, 256
+    count = rng.randint(1, 6, n).astype(np.int32)
+    count[2000:5000] = 0                      # 3000 empty splats inside one block
+    count[[100, 1500, 6000]] = 3000           # a few huge splats
+    count[9000:] = 0                          # the tail
+    offsets = (np.cumsum(count) - count).astype(np.int32)
+    capacity = int(count.sum()) + 3000        # slots past the last entry too
+    ub = np.searchsorted(offsets, np.minimum(np.arange(0, capacity, E.SLOTS), capacity),
+                         side="right")
+    last = np.minimum(np.arange(0, capacity, E.SLOTS) + E.SLOTS, capacity) - 1
+    widest = int((np.searchsorted(offsets, last, side="right") - ub).max())
+    assert widest > 1024, widest              # csrc/expand.cu stages 1024 rows
+    x0 = rng.randint(0, tiles_x, n)
+    nx = np.minimum(rng.randint(1, 4, n), tiles_x - x0)
+    basenx = ((rng.randint(0, 8, n) * tiles_x + x0) * 256 + nx).astype(np.int32)
+    perm = rng.permutation(n).astype(np.int32)
+    caps = tuple(rng.randint(0, 1 << 24, n).astype(np.int32) for _ in range(3)) if cull else None
+    kw = dict(capacity=capacity, n=n, n_tiles=n_tiles, tiles_x=tiles_x, shift=14,
+              rank_drop=0, tile_w=32, tile_h=16)
+
+    def args(dev):
+        t = lambda a: torch.from_numpy(a).to(dev)
+        return dict(offsets=t(offsets), basenx=t(basenx), perm=t(perm),
+                    n_entries=torch.tensor(int(count.sum()), dtype=torch.int32, device=dev),
+                    caps=None if caps is None else tuple(t(c) for c in caps), **kw)
+
+    key_k, gid_k = E.expand_entries(**args("cuda"))
+    key_p, gid_p = E.expand_entries_plain(**args("cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(key_k, key_p) and torch.equal(gid_k, gid_p)
+
+
 # every head-dim bucket of the tensor-core kernels (bfloat16: 64, 128, 256,
 # 512, and d = 48 zero-padded to 64) and of the CUDA-core variant (float32
 # at the same buckets; bfloat16 with d % 16 != 0); check_flash also runs

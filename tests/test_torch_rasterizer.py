@@ -247,3 +247,31 @@ def test_carry_table_restarts_each_chunk(tw, th, w, h):
     np.testing.assert_allclose(g_car.numpy()[:, :used] / scale,
                                np.asarray(j_g)[:, :used] / scale, atol=2e-4)
     assert not g_car[:, used:].any()
+
+
+@pytest.mark.parametrize("tw,th", [(16, 16), (32, 16)])
+def test_tile_order_busiest_first(tw, th):
+    """K1 dispatches its tiles in `tile_order`: a permutation of the
+    n_tiles + 1 tiles (the trash tile included) by live entries, most first,
+    ties in tile order; the live entries are those of the binned chunks."""
+    from dreamscene_tpu_torch.ops import binning as tbin
+    from dreamscene_tpu_torch.ops.composite import tile_order
+
+    rng = np.random.RandomState(tw + th)
+    n, width, height = 400, 96, 64
+    means = np.stack([rng.uniform(-10, width + 10, n),
+                      rng.uniform(-10, height + 10, n)], 1).astype(np.float32)
+    means[: n // 2] = (means[: n // 2] * 0.2 + [40.0, 30.0]).astype(np.float32)  # a busy spot
+    radii = rng.randint(0, 12, n).astype(np.int32)
+    b = tbin.bin_splats(torch.from_numpy(means), torch.from_numpy(rng.uniform(1, 5, n).astype(
+        np.float32)), torch.from_numpy(radii), torch.from_numpy(radii > 0), width, height,
+        capacity=5000, chunk=128, tile_w=tw, tile_h=th)
+    n_tiles = -(-width // tw) * -(-height // th)
+    order = tile_order(b.chunk_tile, b.chunk_lo, b.chunk_hi, n_tiles)
+    assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(n_tiles + 1))
+    live = [0] * (n_tiles + 1)
+    for u in range(int(b.n_chunks_used)):
+        live[int(b.chunk_tile[u])] += int(b.chunk_hi[u] - b.chunk_lo[u])
+    keys = [(-live[t], t) for t in order.tolist()]
+    assert keys == sorted(keys)
+    assert live[int(order[0])] == max(live) > live[int(order[-1])] == 0
