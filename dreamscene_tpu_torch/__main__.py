@@ -1,12 +1,14 @@
 """CLI of the port: the counterpart of the repository's main.py.
 
-    python -m dreamscene_tpu_torch --object --config configs/objects/sample.yaml \
-        [--device cuda|cpu] [--exp-root experiments] [a.b=c ...]
+    python -m dreamscene_tpu_torch [--object] --config CONFIG.yaml \
+        [--device cuda|cpu] [--exp-root experiments] [--env-density 1.0] [a.b=c ...]
 
 Defaults <- YAML file <- dotlist overrides (utils/config.load_config).
-`--object` trains one object (ObjectTrainer.train); the scene pipeline is
-not ported yet (ROADMAP queue A, the scene path). The trainer runs on the
-card unless `--device cpu` is given.
+`--object` trains one object (ObjectTrainer.train); without it the scene
+pipeline runs (SceneTrainer.train: the scene's objects, then the three
+scene stages), as main.py does. `--env-density` (< 1) scales the env and
+floor init clouds down, for small runs. The trainer runs on the card unless
+`--device cpu` is given.
 """
 
 import argparse
@@ -24,17 +26,21 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--exp-root", default="experiments",
                         help="directory that holds the experiment folders")
+    parser.add_argument("--env-density", type=float, default=1.0,
+                        help="scene mode: scale of the env/floor init point counts")
     parser.add_argument("overrides", nargs="*", help="dotlist overrides, e.g. seed=1")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
-    if not args.object:
-        raise NotImplementedError(
-            "scene generation is not ported yet: ROADMAP queue A, the scene path "
-            "(pass --object for single-object generation)")
-    from dreamscene_tpu_torch.training.object_trainer import ObjectTrainer
+    cfg = load_config(args.config, args.overrides, object_mode=args.object)
+    if args.object:
+        from dreamscene_tpu_torch.training.object_trainer import ObjectTrainer
 
-    cfg = load_config(args.config, args.overrides, object_mode=True)
-    ObjectTrainer(cfg, exp_root=args.exp_root, device=args.device).train()
+        ObjectTrainer(cfg, exp_root=args.exp_root, device=args.device).train()
+    else:
+        from dreamscene_tpu_torch.training.scene_trainer import SceneTrainer
+
+        SceneTrainer(cfg, exp_root=args.exp_root, device=args.device,
+                     env_density=args.env_density).train()
     return 0
 
 

@@ -1,8 +1,10 @@
 """What sets K1's time: the one-CTA-per-tile form beside the
 one-warp-per-32-pixels form of csrc/composite_fwd.cu, on seeded scenes
-(bench/scenes.py; the full-width one and the 16x16-tile one of chip_smoke.py).
+(bench/scenes.py): the full-width one and the 16x16-tile one of
+chip_smoke.py, or with `scene-path` the scene path's: config #3's five
+objects at 800^2 (32x16 and 16x16 tiles) and a stage-1 view of config #4.
 
-    python -m dreamscene_tpu_torch.bench.k1_variants
+    python -m dreamscene_tpu_torch.bench.k1_variants [scene-path]
 
 Builds the kernel library and, beside it, csrc/composite_fwd.cu with
 -DDS_K1_PER_TILE (the per-tile body) and with -DDS_K1_NO_BOX. For each
@@ -68,6 +70,31 @@ def unit_tile(form: str, unit: int, tile_pix: int, order) -> int:
     return int(order[rank]) if order is not None else rank
 
 
+def scene_inputs(scene_path: bool):
+    """(label, binned inputs) of each scene to time."""
+    from pathlib import Path
+
+    from dreamscene_tpu_torch.models.scene import final_combine_all
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not scene_path:
+        for label, n_pts, w, h, tw, th in SCENES:
+            cache = tempfile.mkdtemp(prefix="k1_variants_init_", dir=kernels.BUILD_DIR)
+            st, cam = scenes.make_scene(n_pts, w, h, n_pts, cache)
+            yield label, scenes.binned_inputs(st, cam, tw, th)
+        return
+    states, cam = scenes.composition_scene()
+    combined = final_combine_all(states)
+    for tw, th in ((32, 16), (16, 16)):
+        yield (f"config #3 5x60K 800^2 {tw}x{th}",
+               scenes.binned_inputs(combined, cam, tw, th, sh_degree=0))
+    del states, combined
+    config = Path(__file__).resolve().parents[2] / "configs" / "scenes" / "sample_indoor.yaml"
+    st, cam, capacity = scenes.indoor_scene(config)
+    yield ("config #4 stage-1 view 512^2 32x16",
+           scenes.binned_inputs(st, cam, 32, 16, sh_degree=0, capacity=capacity))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("k1_variants: CUDA is not available", file=sys.stderr)
@@ -78,11 +105,8 @@ def main() -> int:
     libs = {"per tile": build_variant("per_tile", ["-DDS_K1_PER_TILE"]),
             "per warp": kernels.lib(),
             "per warp no box": build_variant("no_box", ["-DDS_K1_NO_BOX"])}
-    for label, n_pts, w, h, tw, th in SCENES:
-        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cache = tempfile.mkdtemp(prefix="k1_variants_init_", dir=kernels.BUILD_DIR)
-        st, cam = scenes.make_scene(n_pts, w, h, n_pts, cache)
-        inp = scenes.binned_inputs(st, cam, tw, th)
+    for label, inp in scene_inputs(sys.argv[1:] == ["scene-path"]):
+        tw, th = inp["tile_w"], inp["tile_h"]
         stats = scenes.tile_stats(inp)
         print(json.dumps({"scene": label, "tiles": stats}), flush=True)
         rt, meta = inp["records_t"], inp["meta"]

@@ -1,7 +1,10 @@
 """Seeded scenes at the compositing kernels' inputs, for the card checks
 and the kernel benches: a perturbed ball of splats seen by one random
-camera, projected and binned into everything K1-K3 take, and the per-tile
-distribution of the binned work. Needs one CUDA card.
+camera, the scene path's two configurations (`composition_scene`: config
+#3's five placed objects at 800^2; `indoor_scene`: config #4's env, floor
+and placed objects seen by a stage-1 camera), projected and binned into
+everything K1-K3 take, and the per-tile distribution of the binned work.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -34,8 +37,87 @@ def make_scene(n_pts, width, height, seed, cache_dir, rng_cam_seed=0):
     return st, cam
 
 
-def binned_inputs(st, cam, tile_w, tile_h, chunk=512):
-    """Project and bin one view; returns everything the kernels take."""
+# config #3 (scripts/bench_compositional.py): five 60K-splat objects at 800^2
+COMP_CENTERS = ((-2.0, -1.5, 0.0), (2.0, -1.5, 0.0), (0.0, 0.5, 0.0), (-1.5, 2.0, 0.0),
+                (1.8, 1.8, 0.0))
+
+
+def orbit_camera(width, height, radius=4.0, theta=80.0, phi=30.0):
+    """The camera of scripts/bench_compositional.py (50 deg FoV)."""
+    import math
+
+    from dreamscene_tpu_torch.cameras import Camera
+    from dreamscene_tpu_torch.cameras.sampling import _pose_to_rt, circle_poses
+
+    R, T = _pose_to_rt(circle_poses(radius, theta, phi))
+    return Camera(R=R.astype(np.float32), T=T.astype(np.float32), fovx=math.radians(50),
+                  fovy=math.radians(50), width=width, height=height)
+
+
+def composition_scene(n_pts=60_000, size=800):
+    """Config #3's five objects, seeded as scripts/bench_compositional.py
+    seeds them, placed with place_object at its centres, rotated 36 deg * i;
+    returns the placed states and the camera."""
+    from dreamscene_tpu_torch.models.gaussians import create_from_points
+    from dreamscene_tpu_torch.models.scene import place_object
+
+    states = []
+    for i, center in enumerate(COMP_CENTERS):
+        rng = np.random.RandomState(i)
+        pts = rng.randn(n_pts, 3).astype(np.float32) * 0.35
+        st = create_from_points(pts, rng.rand(n_pts, 3).astype(np.float32), sh_degree=2,
+                                capacity=n_pts, device="cuda")
+        states.append(place_object(st, center, rotation=[0.0, 0.0, 36.0 * i], scale=1.0)[0])
+    return states, orbit_camera(size, size)
+
+
+def indoor_scene(config_path, obj_pts=30_000, seed=0):
+    """Config #4 without the trainer: configs/scenes/sample_indoor.yaml's
+    env and floor at full density (capacities as prepare_train_scene sets
+    them), its four placed instances as seeded balls of `obj_pts` splats,
+    all concatenated (objects, floor, env), and the first stage-1 camera;
+    returns (state, camera, the scene step's entry capacity at the
+    starting multiplier)."""
+    from dreamscene_tpu_torch.cameras.scene_sampling import SceneCameraLoader
+    from dreamscene_tpu_torch.models.gaussians import create_from_points
+    from dreamscene_tpu_torch.models.init import init_env_points, init_floor_points, sample_ball
+    from dreamscene_tpu_torch.models.scene import final_combine_all, place_object
+    from dreamscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(config_path), [])
+    sc = cfg.scene_configs["scene"]
+    box = np.zeros(6, np.float32)
+    states, args = [], []
+    for j, obj in enumerate(sc["scene_composition"]):
+        rng = np.random.RandomState(seed + j)
+        base = create_from_points(sample_ball(obj_pts, 0.5, rng).astype(np.float32),
+                                  rng.rand(obj_pts, 3).astype(np.float32), sh_degree=1,
+                                  capacity=obj_pts, device="cuda")
+        for tp in obj["params"]:
+            placed, oa, bbox = place_object(base, tp["center"], tp["rotation"], tp["scale"])
+            states.append(placed)
+            args.append(oa)
+            box[:3], box[3:] = np.minimum(box[:3], bbox[:3]), np.maximum(box[3:], bbox[3:])
+    cfg_box = np.zeros(6, np.float32)
+    cfg_box[3:] = np.asarray(sc["radius"], np.float32)
+    cfg_box[:2] = -cfg_box[3:5]
+    box[:3], box[3:] = np.minimum(box[:3], cfg_box[:3]), np.maximum(box[3:], cfg_box[3:])
+    max_pts = cfg.sceneOptimizationParams.max_point_number
+    env = init_env_points("indoor", box, sc["env_init_color"], seed=cfg.seed)
+    floor = init_floor_points("indoor", box, sc["floor_init_color"], seed=cfg.seed + 1)
+    states.append(create_from_points(*floor, sh_degree=1, device="cuda",
+                                     capacity=min(int(floor[0].shape[0] * 1.5), max_pts // 3)))
+    states.append(create_from_points(*env, sh_degree=1, device="cuda",
+                                     capacity=min(int(env[0].shape[0] * 1.5), max_pts)))
+    loader = SceneCameraLoader(np.random.default_rng(cfg.seed), cfg.sceneGenerateCamParams,
+                               box, args, "indoor")
+    rows = sum(st.capacity for st in states)
+    return final_combine_all(states), loader.Stage1_Indoor()[0], 4 * rows // 2
+
+
+def binned_inputs(st, cam, tile_w, tile_h, chunk=512, sh_degree=2, capacity=None):
+    """Project and bin one view at `capacity` entries (default 4 per
+    splat row); returns everything the kernels take."""
     from dreamscene_tpu_torch.ops import binning
     from dreamscene_tpu_torch.ops.projection import project_gaussians
 
@@ -46,10 +128,10 @@ def binned_inputs(st, cam, tile_w, tile_h, chunk=512):
             st.get_features, torch.as_tensor(cam.world_view_transform, device=dev),
             torch.as_tensor(cam.full_proj_transform, device=dev),
             torch.as_tensor(cam.camera_center, device=dev), cam.tanfovx,
-            cam.tanfovy, cam.width, cam.height, sh_degree=2,
+            cam.tanfovy, cam.width, cam.height, sh_degree=sh_degree,
             valid_mask=st.aux["active"])
         n = sp.means2d.shape[0]
-        capacity = 4 * n
+        capacity = capacity or 4 * n
         ex = binning.expand_args(sp.means2d, sp.depths, sp.radii, sp.visible,
                                  cam.width, cam.height, capacity, sp.conics,
                                  sp.opacities, None, tile_w, tile_h)

@@ -9,12 +9,17 @@ kernels are HWIO (torch OIHW), dense kernels [in, out] (torch
 Flax up_{n_blocks-1-k}.
 
 `gaussian_state` builds a GaussianState from numpy copies of the JAX
-GaussianState's params, Adam moments and aux.
+GaussianState's params, Adam moments and aux; `state_from` does the copy
+itself from such a state's fields, and `scene_model` turns a JAX SceneModel
+(object instances, env, floor, placement records, scene box) into the
+port's.
 
 Nothing here imports JAX: the caller does the jax -> numpy step.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -174,6 +179,39 @@ def gaussian_state(params: dict, aux: dict, mu: dict, nu: dict, count: int,
                          opt=AdamState(count=int(count), mu=conv(mu), nu=conv(nu)),
                          sh_degree=sh_degree, active_sh_degree=active_sh_degree,
                          spatial_lr_scale=spatial_lr_scale)
+
+
+def state_from(st, device="cpu") -> GaussianState:
+    """GaussianState from a JAX GaussianState: its params and aux
+    dataclasses and its Adam state (count, mu, nu) are read field by field
+    through numpy."""
+
+    def fields(obj):
+        return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+
+    return gaussian_state(fields(st.params), fields(st.aux), fields(st.opt.mu),
+                          fields(st.opt.nu), int(np.asarray(st.opt.count)), st.sh_degree,
+                          st.active_sh_degree, st.spatial_lr_scale, device=device)
+
+
+def scene_model(scene, device="cpu"):
+    """The port's SceneModel from a JAX SceneModel: every object instance,
+    the env and the floor (`state_from`), the placement records, the scene
+    box and the stage counter."""
+    from dreamscene_tpu_torch.models.scene import ObjectArgs, ObjectEntry, SceneModel
+
+    objects = {name: ObjectEntry(id=e.id, state=state_from(e.state, device), step=e.step,
+                                 text=e.text)
+               for name, e in scene.objects.items()}
+    args = [ObjectArgs(object_id=a.object_id, clas=a.clas,
+                       affine={k: np.asarray(v) for k, v in a.affine.items()},
+                       bbox=np.asarray(a.bbox).copy())
+            for a in scene.objects_args]
+    return SceneModel(
+        objects=objects, objects_args=args,
+        env=None if scene.env is None else state_from(scene.env, device),
+        floor=None if scene.floor is None else state_from(scene.floor, device),
+        scene_box=np.asarray(scene.scene_box, np.float32).copy(), stage_n=scene.stage_n)
 
 
 def guidance_modules(unet_sd: dict, enc_sd: dict, dec_sd: dict, unet_cfg, vae_cfg,

@@ -18,7 +18,8 @@
 //
 // Design: one launch per call, nothing computed on the host but the
 // per-geometry constants (ExpandGeo, passed by value). One thread per slot,
-// SLOTS slots per CUDA block, all inside one window block:
+// SLOTS slots per CUDA block (128 when the window block is an odd multiple
+// of 128 slots), all inside one window block:
 //  * the window end: the block's first warps run the two binary searches
 //    over the unclamped offsets that give its window block's end (as
 //    ops/expand.py::_window_ends does for all blocks at once; the
@@ -68,7 +69,8 @@ struct ExpandGeo {
   float cxo, cyo, hwx, hwy, inv_tiles_x;
 };
 
-constexpr int SLOTS = 256;                // entry slots (threads) per CUDA block
+constexpr int SLOTS = 256;                // entry slots (threads) per CUDA block, at most
+constexpr int MIN_SLOTS = 128;            // the window block's granularity (the JAX kernel's)
 constexpr int OWNERS = 1024;              // owner offsets a block stages in shared memory
 
 // # of i in [lo, hi) with min(a[i], cap) <= v (a sorted); cap = INT_MAX reads a as it is
@@ -89,8 +91,9 @@ __global__ void __launch_bounds__(SLOTS) expand_kernel(
     int* __restrict__ gid_out, const ExpandGeo g) {
   __shared__ int s_offs[OWNERS];
   __shared__ int s_bound[4];
-  const int e0 = blockIdx.x * SLOTS;
-  const int e_last = min(e0 + SLOTS, g.capacity) - 1;
+  const int slots = blockDim.x;           // SLOTS, or MIN_SLOTS: divides g.block
+  const int e0 = blockIdx.x * slots;
+  const int e_last = min(e0 + slots, g.capacity) - 1;
   if ((threadIdx.x & 31) == 0 && threadIdx.x < 128) {
     // four searches, one per warp: the window block's two (unclamped
     // offsets) and the owners of the first and last slot (clamped)
@@ -108,7 +111,7 @@ __global__ void __launch_bounds__(SLOTS) expand_kernel(
   const int r0 = s_bound[2], m = s_bound[3] - r0;
   const bool staged = m <= OWNERS;
   if (staged) {
-    for (int i = threadIdx.x; i < m; i += SLOTS) s_offs[i] = min(offsets[r0 + i], g.capacity);
+    for (int i = threadIdx.x; i < m; i += slots) s_offs[i] = min(offsets[r0 + i], g.capacity);
   }
   __syncthreads();
   const int e = e0 + threadIdx.x;
@@ -177,17 +180,19 @@ __global__ void __launch_bounds__(SLOTS) expand_kernel(
 }  // namespace
 
 // geo: a host pointer to the launch's ExpandGeo. block a positive multiple
-// of SLOTS (a CUDA block then lies in one window block).
+// of MIN_SLOTS; a CUDA block holds SLOTS slots where that divides block and
+// MIN_SLOTS where it does not, so that it lies in one window block.
 extern "C" int ds_expand_entries(
     const void* offsets, const void* basenx, const void* perm, const void* caps0,
     const void* caps1, const void* caps2, const void* n_entries, void* key_out,
     void* gid_out, const void* geo, void* stream) {
   const ExpandGeo g = *(const ExpandGeo*)geo;
-  if (g.block < SLOTS || g.block % SLOTS != 0 || g.n < 1 || g.capacity < 0)
+  if (g.block < MIN_SLOTS || g.block % MIN_SLOTS != 0 || g.n < 1 || g.capacity < 0)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (g.capacity + SLOTS - 1) / SLOTS;
+  const int slots = g.block % SLOTS == 0 ? SLOTS : MIN_SLOTS;
+  const int blocks = (g.capacity + slots - 1) / slots;
   if (blocks > 0) {
-    expand_kernel<<<blocks, SLOTS, 0, (cudaStream_t)stream>>>(
+    expand_kernel<<<blocks, slots, 0, (cudaStream_t)stream>>>(
         (const int*)offsets, (const int*)basenx, (const int*)perm, (const int*)caps0,
         (const int*)caps1, (const int*)caps2, (const int*)n_entries, (int*)key_out,
         (int*)gid_out, g);

@@ -23,14 +23,20 @@ index gathering. Overflow past `capacity` drops the farthest splats
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
 
 from dreamscene_tpu_torch.ops.expand import expand_entries
 
-DEFAULT_TILE_W = 32
-DEFAULT_TILE_H = 16
+# Tile shape: an explicit argument, else DS_TILE_W / DS_TILE_H, else 32x16,
+# as the JAX package resolves it (its ops/binning.py:61-75). The variables
+# are read once, at import: set them before the first import, to the same
+# values in every process. DS_TILE_W=16 DS_TILE_H=16 gives the CUDA
+# reference's 16x16 tiles.
+DEFAULT_TILE_W = int(os.environ.get("DS_TILE_W", "32"))
+DEFAULT_TILE_H = int(os.environ.get("DS_TILE_H", "16"))
 ALIGN = 128
 
 

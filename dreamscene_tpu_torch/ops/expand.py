@@ -16,20 +16,27 @@ window ends per block on the card.
 
 CUDA tensors go to csrc/expand.cu, one launch per call; CPU tensors to
 `expand_entries_plain`.
+
+The window block length is read from `DS_EXPAND_BLOCK` once, at import,
+as the JAX package's ops/binning.py reads it (default 2048): set it before
+the first import, to the same value in every process. K3 takes any
+positive multiple of 128 slots, as the JAX kernel does.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import numpy as np
 import torch
 
 from dreamscene_tpu_torch import kernels
 
-BLOCK = 2048        # slots per window block (the JAX kernel's default)
-SLOTS = 256         # slots per CUDA block of K3 (csrc/expand.cu)
+BLOCK = int(os.environ.get("DS_EXPAND_BLOCK", "2048"))   # slots per window block
+SLOTS = 256         # slots per CUDA block of K3 where it divides the block (csrc/expand.cu)
+MIN_SLOTS = 128     # else 128: the window block's granularity
 CAP_PAD = 0.3       # cull-test half-extent padding beyond (tile/2 - 0.5) px
 
 
@@ -86,8 +93,9 @@ class ExpandGeo(ctypes.Structure):
 def expand_geometry(capacity, n, n_tiles, tiles_x, shift, rank_drop, block, use_cull,
                     tile_w, tile_h) -> ExpandGeo:
     """The launch's constants, built once per geometry."""
-    if block < SLOTS or block % SLOTS:
-        raise ValueError(f"block of {block} slots: K3 takes a positive multiple of {SLOTS}")
+    if block < MIN_SLOTS or block % MIN_SLOTS:
+        raise ValueError(f"block of {block} slots (DS_EXPAND_BLOCK): K3 takes a positive "
+                         f"multiple of {MIN_SLOTS}")
     c = _cull_consts(tile_w, tile_h, tiles_x)
     return ExpandGeo(capacity, n, n_tiles, tiles_x, shift, rank_drop, block, int(use_cull),
                      tile_w, tile_h, c["cxo"], c["cyo"], c["hwx"], c["hwy"], c["inv_tiles_x"])

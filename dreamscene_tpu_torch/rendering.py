@@ -1,15 +1,17 @@
-"""Render entry points of object generation: object_render and
-score_render, plus the host-sampled train-time augmentations.
+"""Render entry points: object_render, score_render, scene_render, plus
+the host-sampled train-time augmentations.
 
-Port of dreamscene_tpu/rendering.py:1-178 (reference SceneGaussian
-render wrappers, scene_gaussian.py:546-671, 895-1044):
+Port of dreamscene_tpu/rendering.py (reference SceneGaussian render
+wrappers, scene_gaussian.py:546-671, 673-893, 895-1044):
   * activations -> rasterizer inputs (exp / sigmoid / normalize);
   * augmentations: SH-degree drop, background, SH noise, scale noise
     (scene_gaussian.py:723-732, 850-857). The noise enters as explicit
     standard-normal tensors (`shs_noise` [C,K,3], `scale_noise` [C,3]),
     as in `fps_step`, where the JAX package draws it from a key;
-  * depth -> normalized disparity (scene_gaussian.py:871-881).
-scene_render is not ported yet (ROADMAP queue A, the scene path).
+  * depth -> normalized disparity (scene_gaussian.py:871-881);
+  * multi-model concatenation (`concat_states`, `scene_render`) with the
+    segment offsets that slice per-model arrays back out
+    (`split_by_segments`).
 """
 
 from __future__ import annotations
@@ -62,22 +64,31 @@ def camera_arrays(camera: Camera, device) -> dict:
                 height=camera.height)
 
 
-def _postprocess(out: dict, camera: Camera) -> dict:
-    """depth + alpha -> normalized disparity, returned as "depth" like the
-    reference (scene_gaussian.py:871-881): disp = focal / (depth +
-    10*alpha + 1e-5), min over the empty (alpha <= 0.1) region, with the
-    JAX package's 0/0 guard on the denominator."""
-    raw_depth, alpha = out["depth"], out["alpha"]
-    focal = 1.0 / (2.0 * camera.tanfovx)
+def _clip(x, lo: float, hi: float):
+    """jnp.clip as min(max(x, lo), hi): ties at the bounds split the
+    gradient like the JAX package's, which torch.clamp does not."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def normalized_disparity(raw_depth, alpha, tanfovx: float):
+    """depth + alpha -> normalized disparity in [0, 1] (reference
+    scene_gaussian.py:871-881): disp = focal / (depth + 10*alpha + 1e-5),
+    min over the empty (alpha <= 0.1) region, with the JAX package's 0/0
+    guard on the denominator (an exactly empty view gives max == min)."""
+    focal = 1.0 / (2.0 * tanfovx)
     disp = focal / (raw_depth + alpha * 10.0 + 1e-5)
     empty = alpha <= 0.1
     min_d = torch.where(empty.any(),
                         torch.where(empty, disp, torch.full_like(disp, float("inf"))).min(),
                         disp.min())
-    disp = (disp - min_d) / torch.clamp_min(disp.max() - min_d, 1e-12)
-    out["raw_depth"] = raw_depth
-    # jnp.clip as min(max()): the gradient at the bounds splits like the JAX one
-    out["depth"] = torch.minimum(torch.maximum(disp, disp.new_tensor(0.0)), disp.new_tensor(1.0))
+    return _clip((disp - min_d) / torch.clamp_min(disp.max() - min_d, 1e-12), 0.0, 1.0)
+
+
+def _postprocess(out: dict, camera: Camera) -> dict:
+    """The raw depth kept as "raw_depth", the normalized disparity
+    returned as "depth", like the reference."""
+    out["raw_depth"] = out["depth"]
+    out["depth"] = normalized_disparity(out["depth"], out["alpha"], camera.tanfovx)
     return out
 
 
@@ -123,3 +134,60 @@ def score_render(state: GaussianState, camera: Camera, bg_color=(0.0, 0.0, 0.0),
                          sh_degree=state.active_sh_degree,
                          capacity=capacity_mult * state.capacity, device=state.device)
     return _postprocess(out, camera)
+
+
+def concat_states(states, shs_noise=None, scale_noise=None, aug: RenderAug | None = None):
+    """Concatenate models for one joint render: (rasterizer inputs,
+    segment offsets); segment i covers state i's capacity rows. SH is
+    zero-padded to the highest degree. Augmentation noise, when given,
+    applies to the concatenated arrays."""
+    k = max(s.params["features_rest"].shape[1] for s in states) + 1
+    parts = []
+    for s in states:
+        p = prepare_inputs(s)
+        if p["shs"].shape[1] < k:
+            p["shs"] = torch.cat([p["shs"], p["shs"].new_zeros(
+                (p["shs"].shape[0], k - p["shs"].shape[1], 3))], dim=1)
+        parts.append(p)
+    offsets = np.cumsum([0] + [s.capacity for s in states])
+    cat = {key: torch.cat([p[key] for p in parts], dim=0) for key in parts[0]}
+    if aug is not None and aug.shs_noise > 0:
+        if shs_noise is None:
+            raise ValueError("aug.shs_noise > 0 needs the shs_noise tensor")
+        cat["shs"] = cat["shs"] + shs_noise * (0.2**0.5) * cat["shs"]
+    if aug is not None and aug.scale_noise > 0:
+        if scale_noise is None:
+            raise ValueError("aug.scale_noise > 0 needs the scale_noise tensor")
+        cat["scales"] = torch.clamp_min(
+            cat["scales"] + scale_noise * (0.2**0.5) * cat["scales"] / 4, 0.0)
+    return cat, offsets
+
+
+def scene_render(states, camera: Camera, bg_color=None, aug: RenderAug | None = None,
+                 test: bool = False, means2d_probe=None, capacity: int | None = None,
+                 shs_noise=None, scale_noise=None) -> dict:
+    """Joint multi-model render on the states' device (reference
+    scene_render, scene_gaussian.py:673-893): the visible models
+    concatenated, one rasterizer pass; SH degree = the lowest active degree
+    of the models; default entry capacity max(4 * total rows, 2048)."""
+    dev = states[0].device
+    inputs, offsets = concat_states(states, shs_noise, scale_noise, None if test else aug)
+    sh_degree = min(s.active_sh_degree for s in states)
+    if aug and aug.sh_degree_drop and not test:
+        sh_degree = 0
+    bg = bg_color if bg_color is not None else (aug.bg_color if aug else (0, 0, 0))
+    n_total = int(offsets[-1])
+    if capacity is None:
+        capacity = max(4 * n_total, 2048)
+    out = R.render(**inputs, **camera_arrays(camera, dev),
+                   bg=torch.as_tensor(bg, dtype=torch.float32, device=dev).reshape(3),
+                   sh_degree=sh_degree, capacity=capacity, means2d_probe=means2d_probe,
+                   device=dev)
+    out = _postprocess(out, camera)
+    out["segments"] = offsets
+    return out
+
+
+def split_by_segments(arr, offsets) -> list:
+    """Slice a concatenated per-splat array back into per-model arrays."""
+    return [arr[int(offsets[i]):int(offsets[i + 1])] for i in range(len(offsets) - 1)]

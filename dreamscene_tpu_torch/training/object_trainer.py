@@ -57,7 +57,7 @@ from dreamscene_tpu_torch.models.init import init_object_points
 from dreamscene_tpu_torch.models.ply import _parse_ply, load_splat_ply, save_splat_ply
 from dreamscene_tpu_torch.ops.losses import tv_loss
 from dreamscene_tpu_torch.ops.rasterizer import render
-from dreamscene_tpu_torch.rendering import object_render, sample_aug
+from dreamscene_tpu_torch.rendering import normalized_disparity, object_render, sample_aug
 from dreamscene_tpu_torch.training.capacity import CapacityController
 from dreamscene_tpu_torch.training.filtering import importance_filter
 from dreamscene_tpu_torch.utils.experiment import setup_experiment_logging
@@ -152,12 +152,6 @@ def camera_tensors(cameras, device) -> list[dict]:
                  tanfovx=c.tanfovx, tanfovy=c.tanfovy) for c in cameras]
 
 
-def _clip(x, lo: float, hi: float):
-    """jnp.clip as min(max(x, lo), hi): ties at the bounds split the
-    gradient like the JAX package's, which torch.clamp does not."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
-
-
 def _render_cameras(params: dict, active, cams: list, aug, shs_noise, scale_noise,
                     probes, *, width: int, height: int, capacity: int, active_deg: int):
     """Render every camera with its augmentation; returns stacked images,
@@ -183,14 +177,7 @@ def _render_cameras(params: dict, active, cams: list, aug, shs_noise, scale_nois
             bg=torch.tensor(a[:3], dtype=torch.float32, device=dev),
             sh_degree=active_deg, capacity=capacity, means2d_probe=probes[i],
             valid_mask=active, device=dev)
-        focal = 1.0 / (2.0 * cams[i]["tanfovx"])
-        disp = focal / (out["depth"] + out["alpha"] * 10.0 + 1e-5)
-        empty = out["alpha"] <= 0.1
-        min_d = torch.where(empty.any(),
-                            torch.where(empty, disp, torch.full_like(disp, float("inf"))).min(),
-                            disp.min())
-        # 0/0 guard: an exactly empty view gives max == min
-        disp = _clip((disp - min_d) / torch.clamp_min(disp.max() - min_d, 1e-12), 0.0, 1.0)
+        disp = normalized_disparity(out["depth"], out["alpha"], cams[i]["tanfovx"])
         images.append(out["image"])
         depths.append(disp[None])
         alphas.append(out["alpha"][None])

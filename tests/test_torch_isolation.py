@@ -93,6 +93,17 @@ def test_trainer_and_guidance_without_cpu_request_raise(monkeypatch, tmp_path):
     assert tr.state.device.type == "cpu"
 
 
+def test_scene_trainer_without_cpu_request_raises(monkeypatch, tmp_path):
+    from dreamscene_tpu_torch.training.scene_trainer import SceneTrainer
+    from dreamscene_tpu_torch.utils.config import load_config
+
+    _no_cuda(monkeypatch)
+    cfg = load_config(str(ROOT / "configs" / "scenes" / "sample_indoor.yaml"), ["log.exp_name=iso"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SceneTrainer(cfg, exp_root=str(tmp_path))
+    assert SceneTrainer(cfg, exp_root=str(tmp_path), device="cpu").device.type == "cpu"
+
+
 def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
     """CPU tensors run the plain versions and never touch the kernel
     library or its launch counters."""

@@ -164,6 +164,48 @@ def test_expand_owner_range_overflows_shared_buffer(card, cull):
     assert torch.equal(key_k, key_p) and torch.equal(gid_k, gid_p)
 
 
+@pytest.mark.parametrize("block", [1024, 384, 128])
+@pytest.mark.parametrize("cull", [True, False])
+def test_expand_any_multiple_of_128_slots(card, block, cull):
+    """K3 with window blocks of any multiple of 128 slots (DS_EXPAND_BLOCK;
+    384 and 128 run 128-slot CUDA blocks) is bit-equal to the plain version,
+    including the slots past the last entry, whose owners the window
+    decides."""
+    import numpy as np
+
+    from dreamscene_tpu_torch.ops import expand as E
+
+    rng = np.random.RandomState(block + cull)
+    n, tiles_x, n_tiles = 6000, 16, 256
+    count = rng.randint(0, 6, n).astype(np.int32)
+    count[4500:] = 0
+    offsets = (np.cumsum(count) - count).astype(np.int32)
+    capacity = int(count.sum()) + 2 * block + 77
+    x0 = rng.randint(0, tiles_x, n)
+    nx = np.minimum(rng.randint(1, 4, n), tiles_x - x0)
+    basenx = ((rng.randint(0, 8, n) * tiles_x + x0) * 256 + nx).astype(np.int32)
+    perm = rng.permutation(n).astype(np.int32)
+    caps = tuple(rng.randint(0, 1 << 24, n).astype(np.int32) for _ in range(3)) if cull else None
+    t = lambda a: torch.from_numpy(a).cuda()
+    kw = dict(offsets=t(offsets), basenx=t(basenx), perm=t(perm),
+              n_entries=torch.tensor(int(count.sum()), dtype=torch.int32, device="cuda"),
+              caps=None if caps is None else tuple(t(c) for c in caps), capacity=capacity,
+              n=n, n_tiles=n_tiles, tiles_x=tiles_x, shift=13, rank_drop=0, tile_w=32,
+              tile_h=16, block=block)
+    key_k, gid_k = E.expand_entries(**kw)
+    key_p, gid_p = E.expand_entries_plain(**kw)
+    torch.cuda.synchronize()
+    assert torch.equal(key_k, key_p) and torch.equal(gid_k, gid_p)
+
+
+def test_scene_step_card_matches_cpu(card):
+    """A small scene step (objects, env, floor) on the card against the
+    CPU: chip_smoke.py's phase 8."""
+    import chip_smoke as cs
+
+    cs.small_scene_parity()
+
+
 # every head-dim bucket of the tensor-core kernels (bfloat16: 64, 128, 256,
 # 512, and d = 48 zero-padded to 64) and of the CUDA-core variant (float32
 # at the same buckets; bfloat16 with d % 16 != 0); check_flash also runs

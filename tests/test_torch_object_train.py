@@ -279,7 +279,18 @@ def test_unported_options_raise(tmp_path):
     cfg.mode_args = {"export_mesh": True}
     with pytest.raises(NotImplementedError, match="mesh"):
         TOT.ObjectTrainer(cfg, exp_root=str(tmp_path), device="cpu").train()
+    # without --object the CLI now runs the scene pipeline (ported): it
+    # builds a SceneTrainer on the config and calls train()
     from dreamscene_tpu_torch.__main__ import main
+    from dreamscene_tpu_torch.training import scene_trainer as TST
 
-    with pytest.raises(NotImplementedError, match="scene"):
-        main(["--config", str(ROOT / "configs/objects/sample.yaml"), "--device", "cpu"])
+    seen = []
+    orig_train = TST.SceneTrainer.train
+    TST.SceneTrainer.train = lambda self, *a, **kw: seen.append((self.device.type,
+                                                                self.env_density))
+    try:
+        assert main(["--config", str(ROOT / "configs/scenes/sample_indoor.yaml"), "--device",
+                     "cpu", "--exp-root", str(tmp_path), "--env-density", "0.5"]) == 0
+    finally:
+        TST.SceneTrainer.train = orig_train
+    assert seen == [("cpu", 0.5)]
