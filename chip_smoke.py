@@ -60,7 +60,30 @@ Phases (any failure exits non-zero; nothing is caught):
      reloaded; then a second train() that resumes at stage 3 and trains
      nothing;
   8. one small scene step on the card against the CPU (the CPU tests' tiny
-     scene; a stage-1 step and a stage-3 recon step).
+     scene; a stage-1 step and a stage-3 recon step);
+  9. the depth ControlNet at config #2 width: phase 3's trainer with a
+     full-width SD2.1-architecture ControlNet (seeded weights, its zero
+     convs filled with small seeded values so the residuals reach the
+     UNet; eps with and without it on one UNet call), every step
+     conditioned: 2 + 5 train_step()s with DS_FLASH_ATTN unset and set,
+     K4 forward launches checked at 10 + 4 per UNet pass, a profiled step
+     each way (device time of the `controlnet` range), peak memory; 9b. two config
+     #4 stage-1 scene steps with that ControlNet, gate set;
+ 10. one small ControlNet FPS step on the card against the CPU;
+ 11. the checkpoint loader without a download: a tiny diffusers directory
+     written under build/ (unet/ and controlnet/ as F16 safetensors, vae/
+     as a .bin, a tiny CLIP text encoder and tokenizer, scheduler/),
+     build_sd_guidance on the card against the same state dicts loaded in
+     memory, run_validation on it, and
+     `python -m dreamscene_tpu_torch.guidance.validate --tiny --size 512`;
+     then a directory at SD 2.1's published widths (UNet, ControlNet, VAE,
+     the 23-layer 1024-wide CLIP text encoder, a 49,408-token vocabulary
+     with 48,894 merges; seeded weights), build_sd_guidance timed on it and
+     every loaded weight held equal to the written one;
+ 12. mesh export: phase 3b's train() with mode_args.export_mesh (128^3),
+     the mesh's counts and extract_fields' wall time, extract_fields at
+     64^3 on its state, card against CPU, and at 128^3 with its
+     slab-narrowed cull against the JAX package's plain cull (same grid).
 The line before the last is the kernel table as JSON (launches by path;
 K1-K3 also at both scene shapes); the last line is
 {"ok": true, "device": {...}}.
@@ -72,6 +95,8 @@ import glob
 import json
 import math
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -472,21 +497,107 @@ def run_slice():
     peak_f = torch.cuda.max_memory_allocated() / 2**30
     profile_step(tr.train_step, ms_f, "profile_flash")
     os.environ.pop("DS_FLASH_ATTN")
-    # 10 self-attention layers at n >= 1024 per UNet pass (R rungs -> R+1
-    # passes), one VAE encode per step, one encoder backward per step
+    # 10 self-attention layers at n >= 1024 per UNet pass
     expect_f = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
-    expect_f.update(flash_fwd=sum(10 * (r + 1) + 1 for r in rungs),
-                    flash_bwd_dkv=n_steps, flash_bwd_dq=n_steps)
-    # the whole path computes in bf16: every forward, dK/dV and dQ launch
-    # must have taken the tensor-core variant
-    expect_f.update({"flash_fwd.tc": expect_f["flash_fwd"], "flash_bwd_dkv.tc": n_steps,
-                     "flash_bwd_dq.tc": n_steps})
+    expect_f.update(k4_expect(rungs, 10, n_steps))
     assert counts_f == expect_f, (counts_f, expect_f)
     log(f"[slice] DS_FLASH_ATTN=1: median {ms_f:.1f} ms/step (unset: {ms:.1f}), rungs {rungs}, "
         f"peak mem {peak_f:.1f} GiB, launches {counts_f}")
     log(json.dumps({"slice_flash": {"ms_per_step_median": ms_f, "rungs": rungs,
                                     "launches": counts_f}}))
-    return counts
+    return counts, tr
+
+
+@torch.no_grad()
+def fill_zero_convs(cn, gen, scale):
+    """Seeded N(0, scale^2) weights for the ControlNet's zero-initialised
+    layers (zero convs, the hint embedding's conv_out): at zero its
+    residuals would be zero and the phase would prove nothing."""
+    n = 0
+    for m in cn.modules():
+        if getattr(m, "zero_init", False):
+            m.weight.normal_(0.0, scale, generator=gen)
+            m.bias.normal_(0.0, scale, generator=gen)
+            n += 1
+    return n
+
+
+def k4_expect(rungs, per_pass, n_steps):
+    """K4 launch counts of `n_steps` gate-set guidance steps with ladders of
+    `rungs` rungs: `per_pass` forwards per UNet pass (R rungs -> R+1
+    passes) plus one per VAE encode, one dK/dV and one dQ per step (the
+    encoder's backward); the whole path computes in bf16, so every
+    forward, dK/dV and dQ launch must have taken the tensor-core variant."""
+    n_fwd = sum(per_pass * (r + 1) + 1 for r in rungs)
+    return {"flash_fwd": n_fwd, "flash_bwd_dkv": n_steps, "flash_bwd_dq": n_steps,
+            "flash_fwd.tc": n_fwd, "flash_bwd_dkv.tc": n_steps, "flash_bwd_dq.tc": n_steps}
+
+
+def run_controlnet_steps(tr):
+    """Phase 9: phase 3's trainer with a full-width ControlNet conditioning
+    every step (use_control_net_iter 0, controlnet_ratio 1), gate unset and
+    set. Returns the launch counts of both legs and the ControlNet."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.guidance import sd_modules as sdm
+
+    g = tr.guidance
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.device("cuda"):
+        cn = sdm.init_random_(sdm.ControlNet(g.mods.unet.cfg, downscale=g.mods.downscale), gen)
+    n_zero = fill_zero_convs(cn, gen, 0.02)
+    cn.requires_grad_(False).eval()
+    # one UNet call with and without the residuals
+    f = g.mods.downscale
+    lat = torch.randn((3, 4, 64, 64), generator=gen, device="cuda")
+    t = torch.full((3,), 500, dtype=torch.int32, device="cuda")
+    ctx = g.get_text_embeds(["a ceramic vase", "", ""])
+    hint = torch.rand((3, 64 * f, 64 * f, 3), generator=gen, device="cuda")
+    with torch.no_grad():
+        eps0 = g.mods.unet(lat, t, ctx)
+        eps1 = g.mods.unet(lat, t, ctx, control_res=cn(lat, t, ctx, hint))
+    rel = float((eps1 - eps0).norm() / eps0.norm())
+    assert math.isfinite(rel) and rel > 1e-3, rel
+    log(f"[controlnet] set-up {time.perf_counter() - t0:.1f}s, {n_zero} zero-init layers filled; "
+        f"one UNet call: eps with vs without the ControlNet, relative L2 {rel:.4g}")
+
+    g.mods.controlnet = cn
+    tr.optim.use_control_net_iter = 0
+    g.guidance_opt.controlnet_ratio = 1.0
+    calls = {"n": 0}
+    hook = cn.register_forward_hook(lambda *_: calls.__setitem__("n", calls["n"] + 1))
+    n_steps = N_STEPS_WARM + N_STEPS_TIMED
+    by_gate, summary = {}, {"eps_rel_l2_with_vs_without": rel}
+    try:
+        for gate in ("unset", "set"):
+            if gate == "set":
+                os.environ["DS_FLASH_ATTN"] = "1"
+            torch.cuda.reset_peak_memory_stats()
+            calls["n"] = 0
+            ms, counts, rungs = fps_steps(tr, f"controlnet {gate}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            # every step conditioned: one ControlNet pass per UNet pass
+            assert calls["n"] == sum(r + 1 for r in rungs), (calls, rungs)
+            expect = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
+            if gate == "unset":
+                expect.update({k: 0 for k in K4 + kernels.VARIANT_NAMES})
+            else:
+                expect.update(k4_expect(rungs, 10 + 4, n_steps))
+            assert counts == expect, (gate, counts, expect)
+            by_gate[gate] = counts
+            summary[gate] = {"ms_per_step_median": ms, "rungs": rungs, "peak_mem_gib": peak,
+                             "launches": counts}
+            log(f"[controlnet] DS_FLASH_ATTN {gate}: median {ms:.1f} ms/step, rungs {rungs}, "
+                f"peak mem {peak:.1f} GiB, launches {counts}")
+            summary[gate]["profile"] = profile_step(
+                tr.train_step, ms, "controlnet_profile" + ("_flash" if gate == "set" else ""),
+                ranges=("controlnet",))
+    finally:
+        hook.remove()
+        os.environ.pop("DS_FLASH_ATTN", None)
+        g.mods.controlnet = None
+    log(json.dumps({"controlnet_steps": summary}))
+    return {k: by_gate["unset"][k] + by_gate["set"][k] for k in kernels.KERNEL_NAMES}, cn
 
 
 def fps_steps(tr, tag):
@@ -535,10 +646,14 @@ def timed_call(parts, name, fn):
 
 def run_train():
     """Phase 3b: ObjectTrainer.train() at config #2 width, DS_FLASH_ATTN=1,
-    sample.yaml's cadences, steps 1497-1502, refine, videos, PLYs."""
+    sample.yaml's cadences, steps 1497-1502, refine, videos, PLYs; and
+    phase 12: the same train() ends with the mesh export
+    (mode_args.export_mesh, 128^3), then extract_fields at 64^3 on its
+    state, card against CPU, and at 128^3 timed with both culls."""
     from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.guidance import mtsd
     from dreamscene_tpu_torch.guidance.sd_modules import VAEConfig, sd21_unet_config
+    from dreamscene_tpu_torch.models import fields, mesh
     from dreamscene_tpu_torch.models.gaussians import num_active
     from dreamscene_tpu_torch.models.ply import load_splat_ply
     from dreamscene_tpu_torch.ops import flash_attention as fa
@@ -553,6 +668,11 @@ def run_train():
         "reconOptimizationParams.densification_interval=10",
         "guidanceParams.C_batch_size=4", "generateCamParams.image_w=512",
         "generateCamParams.image_h=512", "log.exp_name=train"], object_mode=True)
+    # the opacity reset at step 1500 leaves every opacity at 0.01: the
+    # occupancy then peaks near 0.24 (not 1.0; the `[mesh]` line's max|occ|
+    # 0.243 in PR 7's runs), so the mesh is cut at 0.05
+    cfg.mode_args = dict(cfg.mode_args or {}, export_mesh=True, mesh_resolution=128,
+                         mesh_thresh=0.05)
     t0 = time.perf_counter()
     guidance = mtsd.make_tiny_guidance(
         cfg.guidanceParams, unet_config=sd21_unet_config(), vae_config=VAEConfig(),
@@ -587,8 +707,10 @@ def run_train():
     for name in ("prepare_train", "_densify", "gaussian_filtering", "save_guidance_viz",
                  "refine_phase", "video_inference", "save_model"):
         setattr(tr, name, timed(name, getattr(tr, name)))
-    recon_step = OT.recon_step
+    recon_step, extract_fields = OT.recon_step, mesh.extract_fields
+    slab_culls = fields.block_culls
     OT.recon_step = timed("recon_step", recon_step)
+    mesh.extract_fields = timed("extract_fields (128^3)", extract_fields)
     fwd_shapes, launch_fwd = {}, fa.launch_fwd
 
     def count_fwd_shape(q, *a):
@@ -605,7 +727,7 @@ def run_train():
     try:
         tr.train(make_videos=True)
     finally:
-        OT.recon_step = recon_step
+        OT.recon_step, mesh.extract_fields = recon_step, extract_fields
         fa.launch_fwd = launch_fwd
         os.environ.pop("DS_FLASH_ATTN")
         for h in hooks:
@@ -634,6 +756,38 @@ def run_train():
     assert all(counts[k] == v for k, v in expect.items()), (counts, expect, calls)
     assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES), counts
     assert sum(fwd_shapes.values()) == counts["flash_fwd"], fwd_shapes
+    mesh_path = tr.ckpt_path / "smoke_mesh.ply"
+    header = mesh_path.read_bytes().split(b"end_header\n")[0].decode()
+    n_verts = int(header.split("element vertex ")[1].split()[0])
+    n_faces = int(header.split("element face ")[1].split()[0])
+    assert parts["extract_fields (128^3)"][0] == 1 and n_verts > 0 and n_faces > 0, header
+    # extract_fields at 64^3 on the trained state, card against CPU
+    t1 = time.perf_counter()
+    occ = extract_fields(tr.state, resolution=64)
+    card_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    occ_cpu = extract_fields(_to(tr.state, torch.device("cpu")), resolution=64)
+    cpu_s = time.perf_counter() - t1
+    occ_err = float(np.abs(occ - occ_cpu).max())
+    occ_max = float(np.abs(occ_cpu).max())
+    assert occ_max > 0 and occ_err <= 1e-4 * occ_max, (occ_err, occ_max)
+    # extract_fields at 128^3 with its slab-narrowed cull and with the JAX
+    # package's plain one (every splat tested for every block): same grid
+    cull_s = {"slab": [], "plain": []}
+    grids = {}
+    for kind in ("slab", "plain", "slab"):
+        fields.block_culls = plain_block_culls if kind == "plain" else slab_culls
+        try:
+            t1 = time.perf_counter()
+            grids[kind] = extract_fields(tr.state, resolution=128)
+            cull_s[kind].append(time.perf_counter() - t1)
+        finally:
+            fields.block_culls = slab_culls
+    assert np.array_equal(grids["slab"], grids["plain"])
+    log(f"[mesh] {mesh_path.name}: {n_verts} vertices, {n_faces} faces; extract_fields 128^3 "
+        f"{parts['extract_fields (128^3)'][1]:.2f}s in train(); again {cull_s['slab']} s, with "
+        f"the plain cull {cull_s['plain']} s (grids equal); 64^3 card {card_s:.2f}s vs cpu "
+        f"{cpu_s:.2f}s, max|d| {occ_err:.3g} (max|occ| {occ_max:.3g})")
     log(f"[train] train() {wall:.1f}s wall; losses {losses}; active {n0} -> "
         f"{actives} -> final {n_final}; rungs {rungs}; module calls {calls}; "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches {counts}")
@@ -642,8 +796,28 @@ def run_train():
                               "launches": counts, "flash_fwd_by_shape": fwd_shapes,
                               "module_calls": calls, "rungs": rungs,
                               "active": {"start": n0, **actives, "final": n_final},
-                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}}))
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                              "mesh": {"n_verts": n_verts, "n_faces": n_faces,
+                                       "extract_fields_64_card_s": card_s,
+                                       "extract_fields_64_cpu_s": cpu_s,
+                                       "extract_fields_64_max_abs_err": occ_err,
+                                       "extract_fields_128_s": cull_s}}}))
     return counts
+
+
+def plain_block_culls(xyz, max_scale, opac, num_blocks, relax_ratio):
+    """The JAX package's per-block cull (dreamscene_tpu/models/fields.py:
+    69-79): every splat's distance to every block's center."""
+    block_size = 2.0 / num_blocks
+    for xi in range(num_blocks):
+        for yi in range(num_blocks):
+            for zi in range(num_blocks):
+                center = np.array([xi, yi, zi]) * block_size - 1.0 + block_size / 2
+                d = np.linalg.norm(xyz - center, axis=-1)
+                keep = (d <= block_size * 0.87 + relax_ratio * max_scale) & (opac > 0)
+                idx = np.nonzero(keep)[0]
+                if idx.size:
+                    yield (xi, yi, zi), idx
 
 
 KERNEL_BUCKETS = (("flash_fwd", "K4 flash_fwd"), ("flash_bwd_dkv", "K4 flash_bwd_dkv"),
@@ -667,7 +841,7 @@ KERNEL_BUCKETS = (("flash_fwd", "K4 flash_fwd"), ("flash_bwd_dkv", "K4 flash_bwd
                   ("reduce", "reduction"))
 
 
-def profile_step(step_fn, untraced_ms, tag, prefix="fps"):
+def profile_step(step_fn, untraced_ms, tag, prefix="fps", ranges=()):
     """One more step (`step_fn()`) under torch.profiler (printed as the
     JSON line `tag`; DS_FLASH_ATTN as the caller left it): device busy time
     by phase and by kernel family, and the device's idle share of the
@@ -676,7 +850,9 @@ def profile_step(step_fn, untraced_ms, tag, prefix="fps"):
     `prefix`.* window on the device timeline. The backward's kernels are
     launched by autograd's device thread, outside every range, so its
     window is the gap from the ladder's end to the optimizer's start (the
-    loss terms and the whole backward)."""
+    loss terms and the whole backward). Each of `ranges` (a profiler range
+    that may open many times in the step, as `controlnet` does once per UNet
+    pass) gets the kernel time that starts inside any of its windows."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -687,13 +863,15 @@ def profile_step(step_fn, untraced_ms, tag, prefix="fps"):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
-    spans, kern = {}, []
+    spans, kern, opened = {}, [], {r: [] for r in ranges}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         start, end = e.time_range.start, e.time_range.end
         if e.name.startswith(prefix + "."):
             spans[e.name] = (start, end)
+        elif e.name in opened:
+            opened[e.name].append((start, end))
         else:
             kern.append((start, (end - start) / 1e3, e.name))
     p = prefix
@@ -709,11 +887,16 @@ def profile_step(step_fn, untraced_ms, tag, prefix="fps"):
         b = next((lab for pat, lab in KERNEL_BUCKETS if pat in name.lower()), "other")
         buckets[b] = buckets.get(b, 0.0) + ms
     top = sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:12]
+    in_ranges = {r: {"windows": len(w), "device_busy_ms": sum(
+        ms for s, ms, _ in kern if any(lo <= s < hi for lo, hi in w))}
+        for r, w in opened.items()}
     log(json.dumps({tag: {
         "traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
         "untraced_step_ms": untraced_ms, "device_idle_share": 1.0 - busy / untraced_ms,
         "phases_device_busy_ms": phases, "kernel_families_ms": buckets,
+        **({"ranges": in_ranges} if ranges else {}),
         "top_kernels_ms": [[k[:90], v] for k, v in top]}}))
+    return in_ranges
 
 
 def _to(x, dev):
@@ -724,6 +907,9 @@ def _to(x, dev):
     from dreamscene_tpu_torch.guidance.mtsd import GuidanceModules
     from dreamscene_tpu_torch.models.gaussians import AdamState, GaussianState
     from dreamscene_tpu_torch.ops.ddim import make_schedule
+
+    def module(m):
+        return None if m is None else copy.deepcopy(m).to(dev)
 
     if isinstance(x, torch.Tensor):
         return x.to(dev)
@@ -737,14 +923,19 @@ def _to(x, dev):
                                                  _to(x.opt.nu, dev)))
     if isinstance(x, GuidanceModules):
         return dataclasses.replace(
-            x, unet=copy.deepcopy(x.unet).to(dev), vae_encoder=copy.deepcopy(x.vae_encoder).to(dev),
-            vae_decoder=copy.deepcopy(x.vae_decoder).to(dev), schedule=make_schedule(device=dev))
+            x, unet=module(x.unet), vae_encoder=module(x.vae_encoder),
+            vae_decoder=module(x.vae_decoder), controlnet=module(x.controlnet),
+            schedule=make_schedule(device=dev))
     return x
 
 
-def small_step_parity():
-    """Phase 4: one small FPS step on the card (kernels) against the same
-    step on the CPU (plain versions): same state, weights and draws."""
+def small_step_parity(controlnet=False):
+    """Phase 4 (and, with `controlnet`, phase 10): one small FPS step on the
+    card (kernels) against the same step on the CPU (plain versions): same
+    state, weights and draws. With `controlnet` the tiny stack has a
+    ControlNet whose zero convs carry seeded non-zero weights, and the step
+    is conditioned on it (use_control_net_iter 0, controlnet_ratio 1)."""
+    from dreamscene_tpu_torch.guidance import mtsd
     from dreamscene_tpu_torch.training.object_trainer import ObjectTrainer, fps_step
     from dreamscene_tpu_torch.utils.config import ObjectsParamsGroups
 
@@ -758,9 +949,16 @@ def small_step_parity():
     cfg.generateCamParams.image_w = 64
     cfg.generateCamParams.image_h = 64
     cfg.mode_args = {}
-    tr = ObjectTrainer(cfg, exp_root=fresh_dir("parity"), device="cpu")
+    guidance = None
+    if controlnet:
+        cfg.optimizationParams.use_control_net_iter = 0
+        cfg.guidanceParams.controlnet_ratio = 1.0
+        guidance = mtsd.make_tiny_guidance(cfg.guidanceParams, with_controlnet=True, device="cpu")
+        fill_zero_convs(guidance.mods.controlnet, torch.Generator().manual_seed(10), 0.2)
+    tr = ObjectTrainer(cfg, guidance=guidance, exp_root=fresh_dir("parity"), device="cpu")
     tr.prepare_train()
     inp = tr.step_inputs()
+    assert inp["use_cn"] == controlnet
     res_cpu = fps_step(**inp)
     res_gpu = fps_step(**_to(inp, torch.device("cuda")))
     torch.cuda.synchronize()
@@ -769,11 +967,243 @@ def small_step_parity():
     for k, g in res_cpu["grads"].items():
         den = float(g.norm())
         rel[k] = float((res_gpu["grads"][k].cpu() - g).norm()) / den if den > 0 else 0.0
-    log(f"[parity] small FPS step (500 pts, 64^2, C_batch 2): loss card {loss_c!r} "
-        f"vs cpu {loss_g!r}; gradient relative L2 card vs cpu {json.dumps(rel)}")
+    label = "small ControlNet FPS step" if controlnet else "small FPS step"
+    hint = ""
+    if controlnet:      # the hint moves the loss well beyond the tolerance
+        loss_plain = float(fps_step(**dict(inp, use_cn=False))["loss"])
+        assert abs(loss_plain / loss_c - 1) > 1e-2, (loss_plain, loss_c)
+        hint = f"; cpu loss without the hint {loss_plain!r}"
+    log(f"[parity] {label} (500 pts, 64^2, C_batch 2): loss card {loss_g!r} "
+        f"vs cpu {loss_c!r}{hint}; gradient relative L2 card vs cpu {json.dumps(rel)}")
     assert math.isclose(loss_g, loss_c, rel_tol=1e-4, abs_tol=1e-6), (loss_g, loss_c)
     assert all(v <= 1e-3 for v in rel.values()), rel
     assert int(res_cpu["n_entries"]) == int(res_gpu["n_entries"])
+
+# ------------------------------------------------------------ checkpoint loader
+SAFETENSORS_DTYPES = {torch.float32: "F32", torch.float16: "F16"}
+TINY_UNET = {"block_out_channels": [32, 32, 64, 64], "cross_attention_dim": 32,
+             "attention_head_dim": 8}
+TINY_CLIP = {"vocab_size": 514, "hidden_size": 32, "intermediate_size": 64,
+             "num_hidden_layers": 2, "num_attention_heads": 4, "max_position_embeddings": 77,
+             "hidden_act": "gelu", "layer_norm_eps": 1e-5}
+# stabilityai/stable-diffusion-2-1: unet/config.json's widths and heads, and
+# text_encoder/config.json (OpenCLIP ViT-H/14's text tower less its last layer)
+SD21_UNET = {"block_out_channels": [320, 640, 1280, 1280], "cross_attention_dim": 1024,
+             "attention_head_dim": [5, 10, 20, 20]}
+SD21_CLIP = {"vocab_size": 49408, "hidden_size": 1024, "intermediate_size": 4096,
+             "num_hidden_layers": 23, "num_attention_heads": 16, "max_position_embeddings": 77,
+             "hidden_act": "gelu", "layer_norm_eps": 1e-5}
+SD21_MERGES = 49408 - 2 * 256 - 2
+
+
+def save_safetensors(path, tensors: dict):
+    """A .safetensors file: 8-byte little-endian header length, the JSON
+    header (dtype, shape, data offsets), the tensors' bytes."""
+    header, off = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": SAFETENSORS_DTYPES[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().numpy().tobytes())
+
+
+def bpe_vocab(n_merges: int, seed: int):
+    """CLIP's vocabulary layout: the 256 byte symbols, the same with
+    `</w>`, one token per merge, then the two special tokens. The merges
+    are seeded pairs of earlier tokens (a left part never ends a word)."""
+    from dreamscene_tpu_torch.guidance.clip_text import BOS, EOS, bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    vocab = chars + [c + "</w>" for c in chars]
+    known, left, merges = set(vocab), list(chars), []
+    rng = np.random.default_rng(seed)
+    while len(merges) < n_merges:
+        a, b = left[rng.integers(len(left))], vocab[rng.integers(len(vocab))]
+        if a + b in known:
+            continue
+        known.add(a + b)
+        vocab.append(a + b)
+        merges.append(f"{a} {b}")
+        if not b.endswith("</w>"):
+            left.append(a + b)
+    return vocab + [BOS, EOS], merges
+
+
+def write_checkpoint(d: Path, unet_json: dict, clip_cfg: dict, n_merges: int,
+                     seed: int) -> dict:
+    """A diffusers-layout directory of seeded random weights: unet/ and
+    controlnet/ (zero convs filled) as F16 safetensors, vae/ (the full-size
+    VAE) as a float32 .bin, text_encoder/ as F32 safetensors, tokenizer/
+    (`bpe_vocab`), scheduler/. Returns the state dicts as the files hold
+    them."""
+    from dreamscene_tpu_torch.guidance import sd_modules as sdm
+    from dreamscene_tpu_torch.guidance.clip_text import CLIPTextModel
+    from dreamscene_tpu_torch.guidance.sd_loader import unet_config
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ucfg = unet_config(unet_json)
+    vcfg = sdm.VAEConfig()
+    torch.manual_seed(seed)
+    with torch.device("cuda"), torch.no_grad():
+        unet = sdm.init_random_(sdm.UNet2DCondition(ucfg), gen)
+        enc = sdm.init_random_(sdm.VAEEncoder(vcfg), gen)
+        dec = sdm.init_random_(sdm.VAEDecoder(vcfg), gen)
+        cn = sdm.init_random_(sdm.ControlNet(ucfg), gen)
+        fill_zero_convs(cn, gen, 0.05)
+        clip = CLIPTextModel(clip_cfg)
+    sds = {"unet": {k: v.half().cpu() for k, v in unet.state_dict().items()},
+           "vae": {k: v.cpu() for m in (enc, dec) for k, v in m.state_dict().items()},
+           "controlnet": {k: v.half().cpu() for k, v in cn.state_dict().items()},
+           "text_encoder": {k: v.cpu() for k, v in clip.state_dict().items()}}
+    del unet, enc, dec, cn, clip
+    torch.cuda.empty_cache()
+    for sub in ("unet", "vae", "controlnet", "text_encoder", "tokenizer", "scheduler"):
+        (d / sub).mkdir(parents=True)
+    (d / "unet" / "config.json").write_text(json.dumps(unet_json))
+    save_safetensors(d / "unet" / "diffusion_pytorch_model.safetensors", sds["unet"])
+    torch.save(sds["vae"], d / "vae" / "diffusion_pytorch_model.bin")
+    save_safetensors(d / "controlnet" / "diffusion_pytorch_model.safetensors", sds["controlnet"])
+    (d / "text_encoder" / "config.json").write_text(json.dumps(clip_cfg))
+    save_safetensors(d / "text_encoder" / "model.safetensors", sds["text_encoder"])
+    vocab, merges = bpe_vocab(n_merges, seed)
+    assert len(vocab) == clip_cfg["vocab_size"]
+    (d / "tokenizer" / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(vocab)}))
+    (d / "tokenizer" / "merges.txt").write_text("\n".join(["#version: 0.2", *merges]) + "\n")
+    (d / "tokenizer" / "tokenizer_config.json").write_text(json.dumps({"model_max_length": 77}))
+    (d / "tokenizer" / "special_tokens_map.json").write_text(json.dumps({"pad_token": "!"}))
+    (d / "scheduler" / "scheduler_config.json").write_text(json.dumps(
+        {"beta_schedule": "scaled_linear", "beta_start": 0.00085, "beta_end": 0.012,
+         "prediction_type": "epsilon", "set_alpha_to_one": False}))
+    return sds
+
+
+def timed_load(d: Path, gp):
+    """build_sd_guidance(d) on the card and its seconds."""
+    from dreamscene_tpu_torch.guidance.sd_loader import build_sd_guidance
+
+    gp.controlnet_model_key = str(d / "controlnet")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    guidance = build_sd_guidance(str(d), gp, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert guidance.mods.controlnet is not None
+    return guidance, load_s
+
+
+def run_loader():
+    """Phase 11: build_sd_guidance on the card from a tiny diffusers
+    directory written here, held against the same state dicts loaded in
+    memory (eps with the ControlNet's residuals, text embeddings); then
+    run_validation on it and the validate CLI's --tiny mode at 512^2; then
+    the load time of a directory at SD 2.1's widths, every loaded weight
+    held equal to the written one."""
+    from dreamscene_tpu_torch.guidance import sd_modules as sdm
+    from dreamscene_tpu_torch.guidance.clip_text import CLIPTextModel, CLIPTokenizer
+    from dreamscene_tpu_torch.guidance.sd_loader import load_torch_state, unet_config
+    from dreamscene_tpu_torch.guidance.validate import run_validation
+    from dreamscene_tpu_torch.utils.config import GuidanceParams
+
+    d = Path(fresh_dir("sd_checkpoint"))
+    t0 = time.perf_counter()
+    sds = write_checkpoint(d, TINY_UNET, TINY_CLIP, 0, seed=11)
+    write_s = time.perf_counter() - t0
+    guidance, load_s = timed_load(d, GuidanceParams())
+
+    # the same state dicts loaded in memory
+    ucfg = unet_config(TINY_UNET)
+    with torch.device("cuda"):
+        unet, cn = sdm.UNet2DCondition(ucfg), sdm.ControlNet(ucfg)
+        clip = CLIPTextModel(TINY_CLIP)
+    for m, sd in ((unet, sds["unet"]), (cn, sds["controlnet"]), (clip, sds["text_encoder"])):
+        m.load_state_dict(sd, strict=True)
+        m.requires_grad_(False).eval()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    lat = torch.randn((3, 4, 64, 64), generator=gen, device="cuda")
+    t = torch.tensor([10, 400, 900], dtype=torch.int32, device="cuda")
+    hint = torch.rand((3, 512, 512, 3), generator=gen, device="cuda")
+    prompts = ["a photo of a red apple on a table", "", "a DSLR photo, 4k!"]
+    with torch.no_grad():
+        ctx = guidance.get_text_embeds(prompts)
+        ctx_mem = clip(CLIPTokenizer(str(d / "tokenizer"))(prompts).cuda())
+        eps = guidance.mods.unet(lat, t, ctx, control_res=guidance.mods.controlnet(lat, t, ctx,
+                                                                                   hint))
+        eps_mem = unet(lat, t, ctx_mem, control_res=cn(lat, t, ctx_mem, hint))
+    err = {"text": float((ctx - ctx_mem).abs().max()), "eps": float((eps - eps_mem).abs().max())}
+    assert all(v <= 1e-5 for v in err.values()) and bool(torch.isfinite(eps).all()), err
+
+    out = Path(fresh_dir("sd_validation"))
+    report = run_validation(guidance, str(out / "loaded"), size=512)
+    cli = subprocess.run([sys.executable, "-m", "dreamscene_tpu_torch.guidance.validate",
+                          "--tiny", "--size", "512", "--out", str(out / "tiny")],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=600)
+    assert cli.returncode == 0, cli.stderr[-4000:]
+    tiny = json.loads(cli.stdout[cli.stdout.index("{"):])
+    files = {}
+    for name, rep in (("loaded", report), ("tiny", tiny)):
+        assert all(math.isfinite(v) for v in rep.values()) and rep["csd_grad_nan"] == 0, rep
+        assert rep["decode_finite"], rep
+        files[name] = sorted(p.name for p in (out / name).iterdir())
+        assert {f.removesuffix(".npy") for f in files[name]} == {
+            "decode_probe.jpg", "roundtrip.jpg", "ladder_grid.jpg", "report.json"}, files
+    del guidance, unet, cn, clip
+    shutil.rmtree(d)
+
+    # SD 2.1's widths: the load time of a real checkpoint's sizes (the
+    # files are read from the page cache, just written)
+    d = Path(fresh_dir("sd21_checkpoint"))
+    t0 = time.perf_counter()
+    sds = write_checkpoint(d, SD21_UNET, SD21_CLIP, SD21_MERGES, seed=21)
+    full_write_s = time.perf_counter() - t0
+    sizes = {sub: sum(f.stat().st_size for f in (d / sub).iterdir()) / 1e9 for sub in sds}
+    guidance, full_load_s = timed_load(d, GuidanceParams())
+    t0 = time.perf_counter()
+    for sub in sds:
+        load_torch_state(str(d / sub))
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    CLIPTokenizer(str(d / "tokenizer"))
+    tokenizer_s = time.perf_counter() - t0
+    mods = guidance.mods
+    loaded = {"unet": mods.unet.state_dict(), "controlnet": mods.controlnet.state_dict(),
+              "vae": {**mods.vae_encoder.state_dict(), **mods.vae_decoder.state_dict()}}
+    for sub, sd in loaded.items():
+        assert sd.keys() == sds[sub].keys(), sub
+        bad = [k for k, v in sd.items() if not torch.equal(v.cpu(), sds[sub][k].to(v.dtype))]
+        assert not bad, (sub, bad[:5])
+    clip = CLIPTextModel(SD21_CLIP)
+    clip.load_state_dict(sds["text_encoder"], strict=True)
+    clip = clip.cuda().requires_grad_(False).eval()
+    with torch.no_grad():
+        ctx = guidance.get_text_embeds(prompts)
+        text_err = float((ctx - clip(CLIPTokenizer(str(d / "tokenizer"))(prompts).cuda()))
+                         .abs().max())
+        lat = torch.randn((3, 4, 64, 64), generator=gen, device="cuda")
+        eps = mods.unet(lat, t, ctx, control_res=mods.controlnet(lat, t, ctx, hint))
+    assert text_err <= 1e-5 and ctx.shape == (3, 77, 1024), (text_err, ctx.shape)
+    assert eps.shape == lat.shape and bool(torch.isfinite(eps).all())
+    del guidance, mods, loaded, clip, sds
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+    log(f"[loader] SD 2.1 widths: {sum(sizes.values()):.2f} GB ({sizes}); build_sd_guidance "
+        f"{full_load_s:.2f}s (files read again alone {read_s:.2f}s, tokenizer "
+        f"{tokenizer_s:.2f}s); written in {full_write_s:.1f}s; every weight equal")
+    log(json.dumps({"loader": {"write_s": write_s, "build_sd_guidance_s": load_s,
+                               "max_abs_err_vs_in_memory": err, "validate_loaded": report,
+                               "validate_tiny_cli": tiny, "files": files,
+                               "sd21_widths": {"gb": sizes, "write_s": full_write_s,
+                                               "build_sd_guidance_s": full_load_s,
+                                               "read_files_s": read_s,
+                                               "tokenizer_s": tokenizer_s,
+                                               "text_max_abs_err": text_err}}}))
+
 
 # ------------------------------------------------------------------ scene path
 SCENE_CFG = Path(__file__).resolve().parent / "configs" / "scenes" / "sample_indoor.yaml"
@@ -886,14 +1316,15 @@ def scene_steps(tr, cams, key, n, tag) -> list:
     return recs
 
 
-def run_scene_steps():
+def run_scene_steps(cn):
     """Phase 6: config #4 (sample_indoor.yaml as shipped, env_density 1.0):
     object_task on the written object PLYs, prepare_train_scene (compress,
     four placed instances, env and floor), then 2 + 5 stage-1 and 5 stage-2
     steps with DS_FLASH_ATTN unset and again with it set, a profiled
     stage-1 step each way, and K1-K3 held against their plain versions on
-    a stage-1 view of this scene. Returns the trainer, launch counts by
-    gate, kernel rows and errors."""
+    a stage-1 view of this scene; then phase 9b, two stage-1 steps with
+    the ControlNet `cn` conditioning both, gate set. Returns the trainer,
+    launch counts by gate (and of phase 9b), kernel rows and errors."""
     from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.bench.scenes import binned_inputs
     from dreamscene_tpu_torch.guidance import mtsd
@@ -941,10 +1372,7 @@ def run_scene_steps():
         if gate == "unset":
             expect.update({k: 0 for k in K4 + kernels.VARIANT_NAMES})
         else:
-            n_fwd = sum(10 * (r["n_rungs"] + 1) + 1 for r in rec1 + rec2)
-            expect.update(flash_fwd=n_fwd, flash_bwd_dkv=n_steps, flash_bwd_dq=n_steps)
-            expect.update({"flash_fwd.tc": n_fwd, "flash_bwd_dkv.tc": n_steps,
-                           "flash_bwd_dq.tc": n_steps})
+            expect.update(k4_expect([r["n_rungs"] for r in rec1 + rec2], 10, n_steps))
         assert counts == expect, (gate, counts, expect)
         counts_by_gate[gate] = counts
         ms1 = float(np.median([r["ms"] for r in rec1[N_SCENE_WARM:]]))
@@ -968,7 +1396,45 @@ def run_scene_steps():
                         sh_degree=min(st.active_sh_degree for st in sts))
     errs, rows = check_kernels("config #4 scene 512^2 32x16 (stage-1 view)", inp, timing=True)
     del combined, inp
+    counts_by_gate["controlnet"] = scene_controlnet_steps(tr, cn)
     return tr, counts_by_gate, rows, errs
+
+
+def scene_controlnet_steps(tr, cn, n=2):
+    """Phase 9b: `n` config #4 stage-1 steps with the ControlNet `cn`
+    conditioning each (use_control_net_iter 0, controlnet_ratio 1), gate
+    set; the guidance is left as it was found."""
+    from dreamscene_tpu_torch import kernels
+
+    g, optp = tr.guidance, tr.cfg.sceneOptimizationParams
+    saved = optp.use_control_net_iter, g.guidance_opt.controlnet_ratio
+    g.mods.controlnet = cn
+    optp.use_control_net_iter, g.guidance_opt.controlnet_ratio = 0, 1.0
+    calls = {"n": 0}
+    hook = cn.register_forward_hook(lambda *_: calls.__setitem__("n", calls["n"] + 1))
+    os.environ["DS_FLASH_ATTN"] = "1"
+    try:
+        c = tr.guidance_opt.C_batch_size
+        tr.step, tr.iters = 0, optp.iterations
+        g.stage_range, g.jump_range = (400, 850), (175, 225)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        recs = scene_steps(tr, tr._stage1_cams(n * c), "env", n, "scene controlnet")
+        counts = dict(kernels.COUNTS)
+    finally:
+        hook.remove()
+        os.environ.pop("DS_FLASH_ATTN")
+        g.mods.controlnet = None
+        optp.use_control_net_iter, g.guidance_opt.controlnet_ratio = saved
+    rungs = [r["n_rungs"] for r in recs]
+    assert calls["n"] == sum(r + 1 for r in rungs), (calls, rungs)
+    expect = {k: c * n for k in K1_K3}
+    expect.update(k4_expect(rungs, 10 + 4, n))
+    assert counts == expect, (counts, expect)
+    log(json.dumps({"scene_controlnet_steps": {
+        "steps": recs, "launches": counts,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}}))
+    return counts
 
 
 def run_scene_train(guidance, exp_root):
@@ -1191,18 +1657,28 @@ def main():
                        library_ms=r["library_ms"][k],
                        bound_ms=r["bound"][k][0], bound_by=r["bound"][k][1])
 
-    by_path = {"object_steps": run_slice(), "object_train": run_train()}
+    by_path = {}
+    by_path["object_steps"], tr = run_slice()
+    by_path["controlnet_steps"], cn = run_controlnet_steps(tr)
+    del tr
+    torch.cuda.empty_cache()
+    by_path["object_train"] = run_train()
     small_step_parity()
+    small_step_parity(controlnet=True)
     by_path["composition_render"], comp_rows, e = run_composition()
     errs.update({k: max(errs[k], v) for k, v in e.items()})
-    tr, gates, scene_rows, e = run_scene_steps()
+    tr, gates, scene_rows, e = run_scene_steps(cn)
     errs.update({k: max(errs[k], v) for k, v in e.items()})
     by_path["scene_steps"] = {k: gates["unset"][k] + gates["set"][k] for k in kernels.KERNEL_NAMES}
+    by_path["controlnet_scene_steps"] = {k: gates["controlnet"][k] for k in kernels.KERNEL_NAMES}
     guidance, exp_root = tr.guidance, str(tr.exp_path.parent)
-    del tr
+    del tr, cn
     torch.cuda.empty_cache()
     by_path["scene_train"] = run_scene_train(guidance, exp_root)
     small_scene_parity()
+    del guidance
+    torch.cuda.empty_cache()
+    run_loader()
 
     table = []
     for k in kernels.KERNEL_NAMES:

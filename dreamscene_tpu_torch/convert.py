@@ -1,9 +1,9 @@
 """Carry weights and state across from the JAX package.
 
 The inverse of the JAX package's guidance/sd_loader.map_* functions: it
-takes the Flax parameter trees of the UNet and the VAE encoder/decoder,
-already converted to nested dicts of numpy arrays, and returns torch
-state dicts with diffusers keys for guidance/sd_modules.py. Flax conv
+takes the Flax parameter trees of the UNet, the ControlNet and the VAE
+encoder/decoder, already converted to nested dicts of numpy arrays, and
+returns torch state dicts with diffusers keys for guidance/sd_modules.py. Flax conv
 kernels are HWIO (torch OIHW), dense kernels [in, out] (torch
 [out, in]), norm `scale` is torch `weight`; diffusers up_blocks[k] is the
 Flax up_{n_blocks-1-k}.
@@ -130,6 +130,43 @@ def unet_state_dict(flax_params: dict, cfg) -> dict:
     return m.sd
 
 
+def controlnet_state_dict(flax_params: dict, cfg) -> dict:
+    """Flax FlaxControlNet params -> ControlNet state dict (the inverse of
+    sd_loader.py:155-198): the UNet's down and mid trunk, the hint
+    embedding (cond_in, cond_block_{k}, cond_out) and the zero convs,
+    ctrl_down_0 after conv_in, then one per resnet and one per downsample."""
+    m = _Mapper(flax_params)
+    m.conv(("conv_in",), "conv_in")
+    m.dense(("time_embedding_linear_1",), "time_embedding.linear_1")
+    m.dense(("time_embedding_linear_2",), "time_embedding.linear_2")
+    emb = "controlnet_cond_embedding"
+    m.conv(("cond_in",), f"{emb}.conv_in")
+    k = 0
+    while _has(m.tree, (f"cond_block_{k}",)):
+        m.conv((f"cond_block_{k}",), f"{emb}.blocks.{k}")
+        k += 1
+    m.conv(("cond_out",), f"{emb}.conv_out")
+    n_blocks = len(cfg.block_out_channels)
+    m.conv(("ctrl_down_0",), "controlnet_down_blocks.0")
+    zc = 1
+    for i in range(n_blocks):
+        for j in range(cfg.layers_per_block):
+            m.resnet(f"down_{i}_res_{j}", f"down_blocks.{i}.resnets.{j}")
+            if cfg.with_cross_attn[i]:
+                m.spatial_transformer(f"down_{i}_attn_{j}", f"down_blocks.{i}.attentions.{j}")
+            m.conv((f"ctrl_down_{zc}",), f"controlnet_down_blocks.{zc}")
+            zc += 1
+        if i < n_blocks - 1:
+            m.conv((f"down_{i}_downsample",), f"down_blocks.{i}.downsamplers.0.conv")
+            m.conv((f"ctrl_down_{zc}",), f"controlnet_down_blocks.{zc}")
+            zc += 1
+    m.resnet("mid_res_0", "mid_block.resnets.0")
+    m.spatial_transformer("mid_attn", "mid_block.attentions.0")
+    m.resnet("mid_res_1", "mid_block.resnets.1")
+    m.conv(("ctrl_mid",), "controlnet_mid_block")
+    return m.sd
+
+
 def vae_encoder_state_dict(flax_params: dict, cfg) -> dict:
     """Flax FlaxVAEEncoder params -> VAEEncoder state dict."""
     m = _Mapper(flax_params)
@@ -215,22 +252,26 @@ def scene_model(scene, device="cpu"):
 
 
 def guidance_modules(unet_sd: dict, enc_sd: dict, dec_sd: dict, unet_cfg, vae_cfg,
-                     device="cpu"):
-    """GuidanceModules whose UNet / VAE weights are the given state dicts
-    (e.g. from `unet_state_dict` and friends)."""
+                     device="cpu", cn_sd: dict | None = None):
+    """GuidanceModules whose UNet / VAE (and, given `cn_sd`, ControlNet)
+    weights are the given state dicts (e.g. from `unet_state_dict` and
+    friends)."""
     from dreamscene_tpu_torch.guidance import mtsd
     from dreamscene_tpu_torch.guidance import sd_modules as sdm
     from dreamscene_tpu_torch.ops.ddim import make_schedule
 
+    downscale = 2 ** (len(vae_cfg.block_out_channels) - 1)
+    parts = [(sdm.UNet2DCondition, (unet_cfg,), unet_sd), (sdm.VAEEncoder, (vae_cfg,), enc_sd),
+             (sdm.VAEDecoder, (vae_cfg,), dec_sd)]
+    if cn_sd is not None:
+        parts.append((sdm.ControlNet, (unet_cfg, downscale), cn_sd))
     mods = []
-    for cls, cfg, sd in ((sdm.UNet2DCondition, unet_cfg, unet_sd),
-                         (sdm.VAEEncoder, vae_cfg, enc_sd),
-                         (sdm.VAEDecoder, vae_cfg, dec_sd)):
+    for cls, args, sd in parts:
         with torch.device(device):
-            m = cls(cfg)
+            m = cls(*args)
         m.load_state_dict(sd, strict=True)
         mods.append(m.requires_grad_(False).eval())
     return mtsd.GuidanceModules(
         unet=mods[0], vae_encoder=mods[1], vae_decoder=mods[2],
         scaling_factor=vae_cfg.scaling_factor, schedule=make_schedule(device=device),
-        downscale=2 ** (len(vae_cfg.block_out_channels) - 1))
+        downscale=downscale, controlnet=mods[3] if cn_sd is not None else None)

@@ -5,8 +5,10 @@ guidance/multitime_sd_utils.py:44-647):
   * `ladder_scores` — the DDIM-inversion ladder: from t=0 the noise level
     walks up a random timestep ladder, the UNet runs on the
     (cond | uncond | null) triple at every rung and the step uses the null
-    prediction. Runs under torch.no_grad() (the JAX step stops its
-    gradient), so autograd keeps none of the UNet passes;
+    prediction; with a depth hint and a ControlNet loaded, the
+    ControlNet's residuals enter every UNet pass. Runs under
+    torch.no_grad() (the JAX step stops its gradient), so autograd keeps
+    none of the UNet or ControlNet passes;
   * `csd_grad` — w(alpha_t) * (uncond + s*(cond - uncond) - blank),
     averaged over rungs;
   * `specify_gradient_loss` — sum(latents * grad.detach());
@@ -16,7 +18,7 @@ guidance/multitime_sd_utils.py:44-647):
 Latents cross these functions as NHWC [B, h, w, 4] and images as NCHW, as
 in the JAX package; the modules run NCHW inside.
 
-Randomness: host draws (ladders, flips) come from numpy
+Randomness: host draws (ladders, ControlNet gates, flips) come from numpy
 default_rng(noise_seed) in the JAX package's call order; tensor draws
 (ladder noise, VAE posterior eps) come from a torch.Generator on the
 device and enter the functions as explicit tensors.
@@ -60,6 +62,9 @@ class GuidanceModules:
     scaling_factor: float
     schedule: DiffusionSchedule
     downscale: int = 8
+    # optional depth ControlNet: (latents, t, ctx, cond_nhwc) ->
+    # (down residuals, mid residual) for the UNet's control_res
+    controlnet: torch.nn.Module | None = None
 
 
 def _nhwc(x):
@@ -115,14 +120,16 @@ def build_rand_ladder(rng: np.random.Generator, jump_range, stage_range,
 
 
 @torch.no_grad()
-def ladder_scores(mods: GuidanceModules, latents, noise, ts, text_emb):
+def ladder_scores(mods: GuidanceModules, latents, noise, ts, text_emb, cond_image=None):
     """DDIM-inversion ladder over t in [0, *ts]; returns a list of
     (t, (cond, uncond, blank), noisy_latent), all NHWC. `ts` are host ints;
-    text_emb is [3B, L, D] (cond | uncond | inverse)."""
+    text_emb is [3B, L, D] (cond | uncond | inverse); cond_image [B, H, W,
+    3] NHWC is the ControlNet's depth hint (ignored without a ControlNet)."""
     b = latents.shape[0]
     dev = latents.device
     lat = add_noise(mods.schedule, latents, noise, torch.zeros((b,), dtype=torch.int32,
                                                                 device=dev))
+    cond3 = _cond3(mods, cond_image)
     outs = []
     ts = [int(t) for t in ts]
     t_i = 0
@@ -131,13 +138,31 @@ def ladder_scores(mods: GuidanceModules, latents, noise, ts, text_emb):
             t_i = ts[i - 1]
         inp = torch.cat([lat, lat, lat], dim=0)
         t_b = torch.full((3 * b,), t_i, dtype=torch.int32, device=dev)
-        eps = _nhwc(mods.unet(_nchw(inp), t_b, text_emb))
+        eps = _nhwc(_apply_unet(mods, _nchw(inp), t_b, text_emb, cond3))
         cond, uncond, blank = eps.chunk(3, dim=0)
         outs.append((t_i, (cond, uncond, blank), lat))
         if i < len(ts):
             lat, _ = ddim_step(mods.schedule, blank,
                                torch.full((b,), t_i, device=dev), lat, -(ts[i] - t_i))
     return outs
+
+
+def _cond3(mods: GuidanceModules, cond_image):
+    """The hint tiled over the (cond | uncond | inverse) triple; None (or
+    no ControlNet loaded) disables conditioning."""
+    if cond_image is None or mods.controlnet is None:
+        return None
+    return torch.cat([cond_image] * 3, dim=0)
+
+
+def _apply_unet(mods: GuidanceModules, inp, t_b, text_emb, cond3):
+    """The UNet on NCHW latents, with the ControlNet's residuals added when
+    a hint is given (its device time is the `controlnet` profiler range)."""
+    if cond3 is None:
+        return mods.unet(inp, t_b, text_emb)
+    with torch.profiler.record_function("controlnet"):
+        res = mods.controlnet(inp, t_b, text_emb, cond3)
+    return mods.unet(inp, t_b, text_emb, control_res=res)
 
 
 def csd_grad(mods: GuidanceModules, scores, guidance_scale: float,
@@ -269,26 +294,52 @@ class MTSD:
     def should_flip(self) -> bool:
         return bool(self._rng.random() < 0.5)
 
+    def use_controlnet(self, step: int, optim_params) -> bool:
+        """Host-side depth-ControlNet gate (reference
+        training/object_trainer.py:343-348 / scene_trainer.py:835-840):
+        step > use_control_net_iter and one `controlnet_ratio` draw from
+        `_rng`. False, with no draw, whenever no ControlNet is loaded."""
+        if self.mods.controlnet is None:
+            return False
+        if step <= getattr(optim_params, "use_control_net_iter", 1 << 30):
+            return False
+        ratio = getattr(self.guidance_opt, "controlnet_ratio", 0.5)
+        return bool(self._rng.random() < ratio)
+
 
 def make_tiny_guidance(guidance_opt, seed: int = 0, unet_config=None, vae_config=None,
-                       token_len: int = 4, device="cuda") -> MTSD:
+                       token_len: int = 4, with_controlnet: bool = False,
+                       downscale: int | None = None, device="cuda") -> MTSD:
     """Seeded random-weight SD stack. Defaults to the miniature configs;
     pass sd21_unet_config() + VAEConfig() for a full-size stack whose
-    compute cost is that of real SD weights (BASELINE.json config #2)."""
+    compute cost is that of real SD weights (BASELINE.json config #2).
+
+    with_controlnet adds a ControlNet at the UNet's config, its zero convs
+    left at zero (an exact no-op until trained). downscale overrides the
+    image -> latent factor of the tiny VAE (log2(downscale) + 1 blocks of
+    32 channels, one layer each; 8 gives SD's latent shapes)."""
     dev = resolve_device(device)
     ucfg = unet_config or sdm.tiny_unet_config()
     vcfg = vae_config or sdm.tiny_vae_config()
+    if downscale is not None and vae_config is None:
+        n_blocks = max(int(np.log2(downscale)), 0) + 1
+        vcfg = dataclasses.replace(vcfg, block_out_channels=(32,) * n_blocks,
+                                   layers_per_block=1)
+    downscale = 2 ** (len(vcfg.block_out_channels) - 1)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.device(dev):
         unet = sdm.init_random_(sdm.UNet2DCondition(ucfg), gen)
         enc = sdm.init_random_(sdm.VAEEncoder(vcfg), gen)
         dec = sdm.init_random_(sdm.VAEDecoder(vcfg), gen)
-    for m in (unet, enc, dec):
-        m.requires_grad_(False).eval()
+        cn = (sdm.init_random_(sdm.ControlNet(ucfg, downscale=downscale), gen)
+              if with_controlnet else None)
+    for m in (unet, enc, dec, cn):
+        if m is not None:
+            m.requires_grad_(False).eval()
     mods = GuidanceModules(
         unet=unet, vae_encoder=enc, vae_decoder=dec,
         scaling_factor=vcfg.scaling_factor, schedule=make_schedule(device=dev),
-        downscale=2 ** (len(vcfg.block_out_channels) - 1))
+        downscale=downscale, controlnet=cn)
     return MTSD(mods=mods, text_encode=crc32_text_encoder(token_len, ucfg.cross_attention_dim,
                                                           dev),
                 guidance_opt=guidance_opt, device=dev)

@@ -14,9 +14,8 @@ approximation (Flax's default). Attention is a plain matmul + float32
 softmax, as the JAX package leaves it to XLA by default; with
 DS_FLASH_ATTN=1 on the card, self-attention of 1024+ tokens goes through
 the K4 flash-attention kernels instead (ops/flash_attention.py, the gate
-of sd_flax.py:102-117), in `Attention` and `VAEAttention` alike.
-
-The ControlNet is not ported yet (ROADMAP queue A).
+of sd_flax.py:102-117), in `Attention` and `VAEAttention` alike, and so
+in the ControlNet's trunk, which reuses the UNet's classes.
 """
 
 from __future__ import annotations
@@ -262,8 +261,9 @@ class _Block(nn.Module):
         self.attentions = nn.ModuleList()
 
 
-class UNet2DCondition(nn.Module):
-    """SD-style conditional UNet, NCHW."""
+class _UNetTrunk(nn.Module):
+    """The time embedding, conv_in, down blocks and mid block that the UNet
+    and the ControlNet share (diffusers names)."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -277,12 +277,7 @@ class UNet2DCondition(nn.Module):
         self.time_embedding.linear_2 = Linear(temb_dim, temb_dim, dt)
         self.conv_in = Conv(cfg.in_channels, ch0, 3, dt, padding=1)
 
-        def st(ch):
-            heads, hdim = cfg.heads_for(ch)
-            return SpatialTransformer(ch, heads, hdim, cfg.cross_attention_dim,
-                                      cfg.num_groups, dt)
-
-        skip_ch = [ch0]
+        self.skip_ch = [ch0]        # channels of each skip state, in order
         self.down_blocks = nn.ModuleList()
         prev = ch0
         for i, ch in enumerate(boc):
@@ -291,20 +286,67 @@ class UNet2DCondition(nn.Module):
                 blk.resnets.append(ResnetBlock(prev if j == 0 else ch, ch,
                                                cfg.num_groups, dt, temb_dim))
                 if cfg.with_cross_attn[i]:
-                    blk.attentions.append(st(ch))
-                skip_ch.append(ch)
+                    blk.attentions.append(self._transformer(ch))
+                self.skip_ch.append(ch)
             if i < len(boc) - 1:
                 blk.downsamplers = nn.ModuleList(
                     [_Sampler(Conv(ch, ch, 3, dt, stride=2, padding=1))])
-                skip_ch.append(ch)
+                self.skip_ch.append(ch)
             self.down_blocks.append(blk)
             prev = ch
 
         self.mid_block = _Block()
         self.mid_block.resnets.append(ResnetBlock(boc[-1], boc[-1], cfg.num_groups, dt, temb_dim))
-        self.mid_block.attentions.append(st(boc[-1]))
+        self.mid_block.attentions.append(self._transformer(boc[-1]))
         self.mid_block.resnets.append(ResnetBlock(boc[-1], boc[-1], cfg.num_groups, dt, temb_dim))
 
+    def _transformer(self, ch):
+        cfg = self.cfg
+        heads, hdim = cfg.heads_for(ch)
+        return SpatialTransformer(ch, heads, hdim, cfg.cross_attention_dim, cfg.num_groups,
+                                  cfg.dtype)
+
+    def embed_time(self, timesteps):
+        temb = timestep_embedding(timesteps, self.cfg.block_out_channels[0])
+        return self.time_embedding.linear_2(F.silu(self.time_embedding.linear_1(temb)))
+
+    def down(self, x, temb, context):
+        """The down pass from the conv_in state `x`; returns the last state
+        and every skip state (conv_in, each resnet/attention, each
+        downsample)."""
+        skips = [x]
+        for i, blk in enumerate(self.down_blocks):
+            for j, res in enumerate(blk.resnets):
+                x = res(x, temb)
+                if self.cfg.with_cross_attn[i]:
+                    x = blk.attentions[j](x, context)
+                skips.append(x)
+            if hasattr(blk, "downsamplers"):
+                x = blk.downsamplers[0].conv(x)
+                skips.append(x)
+        return x, skips
+
+    def mid(self, x, temb, context):
+        x = self.mid_block.resnets[0](x, temb)
+        x = self.mid_block.attentions[0](x, context)
+        return self.mid_block.resnets[1](x, temb)
+
+
+class UNet2DCondition(_UNetTrunk):
+    """SD-style conditional UNet, NCHW.
+
+    `control_res = (down_residuals, mid_residual)` adds ControlNet
+    residuals: one per skip state after the down pass, one on the mid state
+    (the diffusers down_block_additional_residuals /
+    mid_block_additional_residual contract, sd_flax.py:276-291); each is
+    cast to the state's dtype before the add."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__(cfg)
+        dt = cfg.dtype
+        boc = list(cfg.block_out_channels)
+        temb_dim = boc[0] * 4
+        skip_ch = list(self.skip_ch)
         self.up_blocks = nn.ModuleList()
         x_ch = boc[-1]
         for k in range(len(boc)):
@@ -316,7 +358,7 @@ class UNet2DCondition(nn.Module):
                                                dt, temb_dim))
                 x_ch = ch
                 if cfg.with_cross_attn[i]:
-                    blk.attentions.append(st(ch))
+                    blk.attentions.append(self._transformer(ch))
             if i > 0:
                 blk.upsamplers = nn.ModuleList([_Sampler(Conv(ch, ch, 3, dt, padding=1))])
             self.up_blocks.append(blk)
@@ -324,28 +366,19 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm(cfg.num_groups, boc[0])
         self.conv_out = Conv(boc[0], cfg.out_channels, 3, torch.float32, padding=1)
 
-    def forward(self, latents, timesteps, context):
+    def forward(self, latents, timesteps, context, control_res=None):
         """latents [B,Cin,H,W]; timesteps [B]; context [B,L,D] -> eps (f32)."""
         cfg = self.cfg
-        dt = cfg.dtype
-        temb = timestep_embedding(timesteps, cfg.block_out_channels[0])
-        temb = self.time_embedding.linear_1(temb)
-        temb = self.time_embedding.linear_2(F.silu(temb))
-        x = self.conv_in(latents)
-        context = context.to(dt)
-        skips = [x]
-        for i, blk in enumerate(self.down_blocks):
-            for j, res in enumerate(blk.resnets):
-                x = res(x, temb)
-                if cfg.with_cross_attn[i]:
-                    x = blk.attentions[j](x, context)
-                skips.append(x)
-            if hasattr(blk, "downsamplers"):
-                x = blk.downsamplers[0].conv(x)
-                skips.append(x)
-        x = self.mid_block.resnets[0](x, temb)
-        x = self.mid_block.attentions[0](x, context)
-        x = self.mid_block.resnets[1](x, temb)
+        temb = self.embed_time(timesteps)
+        context = context.to(cfg.dtype)
+        x, skips = self.down(self.conv_in(latents), temb, context)
+        if control_res is not None:
+            down_res, mid_res = control_res
+            assert len(down_res) == len(skips), (len(down_res), len(skips))
+            skips = [s + r.to(s.dtype) for s, r in zip(skips, down_res)]
+        x = self.mid(x, temb, context)
+        if control_res is not None:
+            x = x + mid_res.to(x.dtype)
         for k, blk in enumerate(self.up_blocks):
             i = len(self.up_blocks) - 1 - k
             for j, res in enumerate(blk.resnets):
@@ -357,6 +390,69 @@ class UNet2DCondition(nn.Module):
                 x = blk.upsamplers[0].conv(x)
         x = F.silu(self.conv_norm_out(x))
         return self.conv_out(x).float()
+
+
+class _CondEmbedding(nn.Module):
+    """The hint's 3x3 conv pyramid down to latent resolution (diffusers
+    ControlNetConditioningEmbedding): conv_in, then per stride-2 stage a
+    same-width conv and a stride-2 conv with symmetric (1,1) padding, then
+    conv_out (zero-initialised)."""
+
+    def __init__(self, cin, cout, downscale, dtype):
+        super().__init__()
+        stages = int(math.log2(downscale))
+        chans = (16, 32, 96, 256)[:stages + 1]
+        self.conv_in = Conv(cin, chans[0], 3, dtype, padding=1)
+        self.blocks = nn.ModuleList()
+        for k in range(stages):
+            self.blocks.append(Conv(chans[k], chans[k], 3, dtype, padding=1))
+            self.blocks.append(Conv(chans[k], chans[k + 1], 3, dtype, stride=2, padding=1))
+        self.conv_out = Conv(chans[stages], cout, 3, dtype, padding=1)
+        self.conv_out.zero_init = True
+
+    def forward(self, c):
+        c = F.silu(self.conv_in(c))
+        for conv in self.blocks:
+            c = F.silu(conv(c))
+        return self.conv_out(c)
+
+
+class ControlNet(_UNetTrunk):
+    """Depth ControlNet (port of sd_flax.py:318-417, diffusers
+    ControlNetModel keys): the hint's conditioning embedding is added to
+    the conv_in state, the UNet's down and mid trunk runs on it, and
+    zero-initialised 1x1 convs (controlnet_down_blocks.{k} after conv_in,
+    each resnet and each downsample; controlnet_mid_block) project every
+    skip state and the mid state into residuals for
+    `UNet2DCondition(control_res=...)`. Untrained, it is an exact no-op.
+
+    latents NCHW [B,4,h,w]; cond NHWC [B, downscale*h, downscale*w, 3] at
+    image resolution, as in the JAX package. Returns (down residuals, mid
+    residual), NCHW float32."""
+
+    def __init__(self, cfg: UNetConfig, downscale: int = 8):
+        super().__init__(cfg)
+        dt = cfg.dtype
+        self.controlnet_cond_embedding = _CondEmbedding(
+            3, cfg.block_out_channels[0], downscale, dt)
+        self.controlnet_down_blocks = nn.ModuleList(
+            [Conv(ch, ch, 1, dt) for ch in self.skip_ch])
+        ch = cfg.block_out_channels[-1]
+        self.controlnet_mid_block = Conv(ch, ch, 1, dt)
+        for conv in [*self.controlnet_down_blocks, self.controlnet_mid_block]:
+            conv.zero_init = True
+        zero_init_(self)
+
+    def forward(self, latents, timesteps, context, cond):
+        cfg = self.cfg
+        temb = self.embed_time(timesteps)
+        context = context.to(cfg.dtype)
+        x = self.conv_in(latents)
+        x = x + self.controlnet_cond_embedding(cond.permute(0, 3, 1, 2))
+        x, skips = self.down(x, temb, context)
+        down = [zc(s).float() for zc, s in zip(self.controlnet_down_blocks, skips)]
+        mid = self.controlnet_mid_block(self.mid(x, temb, context)).float()
+        return down, mid
 
 
 # --------------------------------------------------------------------------
@@ -504,5 +600,17 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
         elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
+            m.bias.zero_()
+    return zero_init_(module)
+
+
+@torch.no_grad()
+def zero_init_(module: nn.Module) -> nn.Module:
+    """Zero the weights and biases of the layers marked `zero_init` (the
+    ControlNet's zero convs and the hint embedding's conv_out, zero at init
+    as in sd_flax.py:371-381)."""
+    for m in module.modules():
+        if getattr(m, "zero_init", False):
+            m.weight.zero_()
             m.bias.zero_()
     return module

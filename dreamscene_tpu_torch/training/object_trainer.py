@@ -25,9 +25,13 @@ order as the JAX trainer. Tensor randomness (ladder noise, VAE posterior
 eps, SH/scale noise, split samples) is drawn from torch Generators on the
 device and passed to the step functions as explicit tensors.
 
-Not ported (ROADMAP queue A): the ControlNet (a config naming one
-raises), mesh export (`mode_args.export_mesh` raises) and the
-multi-device mesh (raises).
+With `mode_args.export_mesh`, `train()` ends by writing `<id>_mesh.ply`
+(models/mesh.py). A depth ControlNet conditions the ladder when the
+guidance has one (`guidance/sd_loader.build_sd_guidance` with
+`guidanceParams.controlnet_model_key`, or `make_tiny_guidance(
+with_controlnet=True)`) and `MTSD.use_controlnet` lets it. Not ported
+(ROADMAP queue A): the multi-device mesh (parallelParams dp*tp > 1
+raises).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from dreamscene_tpu_torch.models.gaussians import (
     resize,
 )
 from dreamscene_tpu_torch.models.init import init_object_points
+from dreamscene_tpu_torch.models.mesh import export_mesh
 from dreamscene_tpu_torch.models.ply import _parse_ply, load_splat_ply, save_splat_ply
 from dreamscene_tpu_torch.ops.losses import tv_loss
 from dreamscene_tpu_torch.ops.rasterizer import render
@@ -193,13 +198,15 @@ def fps_step(state: GaussianState, mods: mtsd.GuidanceModules, cams: list, aug,
              text_emb, ladder, noise, vae_eps, shs_noise, scale_noise, flip: bool,
              as_latent: bool, lrs: dict, *, width: int, height: int, capacity: int,
              active_deg: int, lambda_tv: float, lambda_scale: float,
-             guidance_scale: float, lambda_guidance: float) -> dict:
+             guidance_scale: float, lambda_guidance: float, use_cn: bool = False) -> dict:
     """One FPS training step (the JAX package's jitted `_fps_step_fn`).
 
     cams: per-camera dicts of view/proj/campos tensors and tan-fovs;
     aug: [C, 6] host floats (bg rgb, sh drop, shs noise, scale noise);
     noise/vae_eps: [C, h, w, 4]; shs_noise: [C, N, K, 3]; scale_noise:
-    [C, N, 3]. Returns the new params/opt/aux, the loss, the peak
+    [C, N, 3]; use_cn: condition the ladder's UNet passes on the
+    ControlNet with the flipped disparity maps as the depth hint. Returns
+    the new params/opt/aux, the loss, the peak
     n_entries/n_dropped over the cameras and the raw gradients. The
     phases are marked as fps.* profiler ranges."""
     c_batch = len(cams)
@@ -216,8 +223,11 @@ def fps_step(state: GaussianState, mods: mtsd.GuidanceModules, cams: list, aug,
     enc_in = depths_f.repeat(1, 3, 1, 1) if as_latent else images_f
     with torch.profiler.record_function("fps.vae_encode"):
         latents = mtsd.encode_images(mods, enc_in, vae_eps)
+    # depth-ControlNet hint: the flipped disparities, NHWC x 3 channels
+    hint = depths_f.permute(0, 2, 3, 1).repeat(1, 1, 1, 3).detach() if use_cn else None
     with torch.profiler.record_function("fps.ladder"):
-        scores = mtsd.ladder_scores(mods, latents.detach(), noise, ladder, text_emb)
+        scores = mtsd.ladder_scores(mods, latents.detach(), noise, ladder, text_emb,
+                                    cond_image=hint)
         with torch.no_grad():
             grad = mtsd.csd_grad(mods, scores, guidance_scale, lambda_guidance)
     loss_g = mtsd.specify_gradient_loss(latents, grad)
@@ -319,9 +329,7 @@ class ObjectTrainer:
                                             device=self.device)
 
     def prepare_train(self):
-        if getattr(self.guidance_opt, "controlnet_model_key", None):
-            raise NotImplementedError(
-                "the depth ControlNet is not ported yet: ROADMAP queue A, ControlNet")
+        # controlnet_model_key is read only by build_sd_guidance, as in JAX
         if self.guidance is None:
             self.guidance = mtsd.make_tiny_guidance(self.guidance_opt, device=self.device)
         self.embeddings = calc_text_embeddings(self.guidance, self.obj.text,
@@ -376,6 +384,8 @@ class ObjectTrainer:
         self._n_band = max(st.capacity, 4096)
         capacity = self.cap_ctrl.capacity(self._n_band)
         aug = self._aug_rows(c_batch)
+        # JAX's order on the guidance's generator: ladder, ControlNet gate, flip
+        use_cn = g.use_controlnet(self.step, optim)
         flip = g.should_flip()
         k = st.params["features_dc"].shape[1] + st.params["features_rest"].shape[1]
         return dict(
@@ -388,7 +398,7 @@ class ObjectTrainer:
             capacity=capacity, active_deg=st.active_sh_degree,
             lambda_tv=optim.lambda_tv, lambda_scale=optim.lambda_scale,
             guidance_scale=self.guidance_opt.guidance_scale,
-            lambda_guidance=self.guidance_opt.lambda_guidance)
+            lambda_guidance=self.guidance_opt.lambda_guidance, use_cn=use_cn)
 
     def train_step(self) -> float:
         inputs = self.step_inputs()
@@ -583,11 +593,8 @@ class ObjectTrainer:
 
     def train(self, video_every: int = 500, make_videos: bool = False):
         """The whole object: FPS phase (resumable), snapshot, refine,
-        videos, final PLY. A finished object (its final PLY exists) is
-        loaded and skipped."""
-        if self._mode_arg("export_mesh", False):
-            raise NotImplementedError(
-                "mesh export is not ported yet: ROADMAP queue A, models/mesh.py")
+        videos, final PLY and, with mode_args.export_mesh, the mesh. A
+        finished object (its final PLY exists) is loaded and skipped."""
         final = self.ckpt_path / f"{self.id}_final_model.ply"
         if final.exists():
             logger.info("object %s already trained; skipping", self.id)
@@ -605,3 +612,10 @@ class ObjectTrainer:
         if make_videos:
             self.video_inference("final")
         self.save_model("final")
+        if self._mode_arg("export_mesh", False):
+            # a coloured mesh out of the trained splats (marching tetrahedra)
+            path = str(self.ckpt_path / f"{self.id}_mesh.ply")
+            info = export_mesh(self.state, path,
+                               resolution=int(self._mode_arg("mesh_resolution", 128)),
+                               thresh=float(self._mode_arg("mesh_thresh", 1.0)))
+            logger.info("mesh export %s: %s", path, info)

@@ -29,8 +29,9 @@ to `scene_step` as explicit tensors.
 Checkpoints (`scene_<n>_stage.ckpt.npz`) hold the env and floor in the
 JAX package's leaf order, so either package resumes the other's.
 
-Not ported (ROADMAP queue A): the depth ControlNet (a config naming one
-raises) and the multi-device mesh (parallelParams dp*tp > 1 raises).
+A depth ControlNet conditions the stage-1/2 ladders when the guidance
+has one and `MTSD.use_controlnet` lets it. Not ported (ROADMAP queue A):
+the multi-device mesh (parallelParams dp*tp > 1 raises).
 """
 
 from __future__ import annotations
@@ -116,13 +117,15 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
                bg_rows, text_emb, ladder, noise, vae_eps, flip: bool, as_latent: bool,
                lrs_list: list, gt_images=None, *, width: int, height: int, capacity: int,
                guidance_on: bool, lambda_tv: float, lambda_tv_depth: float,
-               lambda_scale: float, guidance_scale: float, lambda_guidance: float) -> dict:
+               lambda_scale: float, guidance_scale: float, lambda_guidance: float,
+               use_cn: bool = False) -> dict:
     """One scene step over the models `states` (objects..., floor, env).
 
     trainable: one bool per model; cams: per-camera dicts of view/proj/
     campos tensors and tan-fovs; bg_rows: [C, 3] host floats; noise /
     vae_eps: [C, h, w, 4]; lrs_list: per-model lr dicts; gt_images: [C, 3,
-    H, W] for the recon loss (guidance_on False). Returns per-model new
+    H, W] for the recon loss (guidance_on False); use_cn: condition the
+    ladder on the ControlNet with the flipped disparities. Returns per-model new
     params/opt/aux (the input's where not trainable), the loss, the peak
     n_entries / n_dropped over the cameras, the trainable models' raw
     gradients (None elsewhere) and the last camera's probe gradient. The
@@ -159,8 +162,11 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
         enc_in = depths_f.repeat(1, 3, 1, 1) if as_latent else images_f
         with torch.profiler.record_function("scene.vae_encode"):
             latents = mtsd.encode_images(mods, enc_in, vae_eps)
+        # depth-ControlNet hint: the flipped disparities, NHWC x 3 channels
+        hint = depths_f.permute(0, 2, 3, 1).repeat(1, 1, 1, 3).detach() if use_cn else None
         with torch.profiler.record_function("scene.ladder"):
-            scores = mtsd.ladder_scores(mods, latents.detach(), noise, ladder, text_emb)
+            scores = mtsd.ladder_scores(mods, latents.detach(), noise, ladder, text_emb,
+                                        cond_image=hint)
             with torch.no_grad():
                 grad = mtsd.csd_grad(mods, scores, guidance_scale, lambda_guidance)
         loss = mtsd.specify_gradient_loss(latents, grad)
@@ -306,9 +312,7 @@ class SceneTrainer:
         """Assemble the scene: placed objects, env and floor, the prompt
         bank, the camera loader; then resume from the latest stage
         checkpoint (reference scene_trainer.py:103-189)."""
-        if getattr(self.guidance_opt, "controlnet_model_key", None):
-            raise NotImplementedError(
-                "the depth ControlNet is not ported yet: ROADMAP queue A, ControlNet")
+        # controlnet_model_key is read only by build_sd_guidance, as in JAX
         if self.guidance is None:
             self.guidance = mtsd.make_tiny_guidance(self.guidance_opt, device=self.device)
 
@@ -452,6 +456,8 @@ class SceneTrainer:
             if self.rng.random() < ratio:
                 bg = list(self.rng.random(3)) if self.rng.random() < 0.5 else [0.0, 0.0, 0.0]
             bg_rows.append(bg)
+        # JAX's order on the guidance's generator: ladder, ControlNet gate, flip
+        use_cn = guidance_on and g.use_controlnet(self.step, self.cfg.sceneOptimizationParams)
         vae_eps = g.next_normal(lat_shape)
         flip = g.should_flip() if guidance_on else False
         capacity = int(self.cap_ctrl.mult * sum(s.capacity for s in states)) // 2
@@ -467,7 +473,7 @@ class SceneTrainer:
                       lambda_tv=optp.lambda_tv, lambda_tv_depth=optp.lambda_tv_depth,
                       lambda_scale=optp.lambda_scale,
                       guidance_scale=self.guidance_opt.guidance_scale,
-                      lambda_guidance=self.guidance_opt.lambda_guidance))
+                      lambda_guidance=self.guidance_opt.lambda_guidance, use_cn=use_cn))
 
     def _run_scene_step(self, cameras, key_gs, only_env, scene_optim, stage_step_rate,
                         guidance_on=True, gt_images=None, optp=None) -> float:

@@ -1,5 +1,6 @@
-"""Isolation of the port: it imports neither JAX nor the JAX package, and
-its entry points refuse to fall back to the CPU on their own."""
+"""Isolation of the port: it imports neither JAX nor the JAX package (nor
+transformers or safetensors, which the card's machine lacks), and its
+entry points refuse to fall back to the CPU on their own."""
 
 import re
 import subprocess
@@ -31,9 +32,8 @@ def test_importing_every_module_loads_no_jax():
         f"for m in {port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "             or k == 'flax' or k.startswith('flax.')\n"
-        "             or k == 'dreamscene_tpu' or k.startswith('dreamscene_tpu.'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'flax', 'dreamscene_tpu', 'transformers', 'safetensors'))\n"
         "print(','.join(bad))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -89,6 +89,13 @@ def test_trainer_and_guidance_without_cpu_request_raise(monkeypatch, tmp_path):
         ObjectTrainer(cfg, exp_root=str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mtsd.make_tiny_guidance(cfg.guidanceParams)
+    from dreamscene_tpu_torch.guidance.clip_text import make_clip_text_encoder
+    from dreamscene_tpu_torch.guidance.sd_loader import build_sd_guidance
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_sd_guidance(str(tmp_path), cfg.guidanceParams)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_clip_text_encoder(str(tmp_path))
     tr = ObjectTrainer(cfg, exp_root=str(tmp_path), device="cpu")
     assert tr.state.device.type == "cpu"
 

@@ -4,7 +4,8 @@ port (`fps_step`, plain versions on the CPU) on the same tiny config,
 state, guidance weights (carried across by `convert.py`), cameras,
 ladder, ladder noise and the JAX step's own random draws (VAE posterior
 eps and per-camera SH/scale noise, recomputed here with jax.random from
-the same key as mtsd.py:106 and object_trainer.py:326-334 draw them).
+the same key as mtsd.py:106 and object_trainer.py:326-334 draw them); once
+more with the depth ControlNet conditioning the ladder.
 
 Tolerances: loss rtol 1e-4; each parameter group's gradient (read from
 Adam's first moment, 0.1*g after one step) relative L2 <= 1e-3; params
@@ -29,8 +30,8 @@ from dreamscene_tpu.training import object_trainer as jot
 from dreamscene_tpu.utils.config import ObjectsParamsGroups as JCfg
 from dreamscene_tpu_torch import convert
 from dreamscene_tpu_torch.cameras import Camera as TCamera
-from dreamscene_tpu_torch.guidance import sd_modules as sdm
 from dreamscene_tpu_torch.training import object_trainer as tot
+from tests.test_torch_controlnet import jax_cn_guidance, port_mods
 
 # One intra-op thread: the suite runs several worker processes at once, and
 # one OpenMP team of all cores per worker makes these small tensors wait on
@@ -87,9 +88,31 @@ def jax_trainer(tmp_path_factory):
     return tr
 
 
-@pytest.mark.parametrize("flip,as_latent", [(True, False), (False, True)])
-def test_fps_step_matches_jax(jax_trainer, flip, as_latent):
+@pytest.fixture(scope="module")
+def cn_guidance():
+    """The JAX tiny stack with a ControlNet whose zero convs carry seeded
+    non-zero weights (at zero the hint would change nothing)."""
+    return jax_cn_guidance()
+
+
+@pytest.mark.parametrize("flip,as_latent,use_cn", [
+    pytest.param(True, False, False, id="True-False"),
+    pytest.param(False, True, False, id="False-True"),
+    pytest.param(True, False, True, id="True-False-controlnet")])
+def test_fps_step_matches_jax(jax_trainer, cn_guidance, flip, as_latent, use_cn):
+    """With use_cn, the ladder runs the ControlNet on the flipped disparity
+    maps (the hint) in both packages."""
     jtr = jax_trainer
+    guidance = jtr.guidance
+    if use_cn:
+        jtr.guidance = cn_guidance
+    try:
+        _fps_step_matches_jax(jtr, flip, as_latent, use_cn)
+    finally:
+        jtr.guidance = guidance
+
+
+def _fps_step_matches_jax(jtr, flip, as_latent, use_cn):
     st = jtr.state
     c_batch, n = 2, st.capacity
     rng = np.random.default_rng(7)
@@ -103,7 +126,7 @@ def test_fps_step_matches_jax(jax_trainer, flip, as_latent):
     vae_key = jax.random.key(3)
     lrs = j_group_lrs(jtr.optim, st.spatial_lr_scale, 1)
     capacity = jtr.cap_ctrl.capacity(max(n, 4096))
-    step = jtr._fps_step_fn(len(ladder), capacity, c_batch, st.active_sh_degree)
+    step = jtr._fps_step_fn(len(ladder), capacity, c_batch, st.active_sh_degree, use_cn)
     j_params, j_opt, j_aux, j_loss, j_nent, j_ndrop = step(
         st.params, st.opt, st.aux, jtr._cam_stack(cameras), jnp.asarray(aug), text_emb,
         jnp.asarray(ladder), jnp.asarray(noise), vae_key, jnp.asarray(flip),
@@ -119,12 +142,8 @@ def test_fps_step_matches_jax(jax_trainer, flip, as_latent):
         shs_noise.append(np.asarray(jax.random.normal(k1, (n, k, 3))))
         scale_noise.append(np.asarray(jax.random.normal(k2, (n, 3))))
 
-    ucfg, vcfg = sdm.tiny_unet_config(), sdm.tiny_vae_config()
-    mods = convert.guidance_modules(
-        convert.unet_state_dict(np_tree(jtr.guidance.mods.unet_params), ucfg),
-        convert.vae_encoder_state_dict(np_tree(jtr.guidance.mods.vae_encode_params), vcfg),
-        convert.vae_decoder_state_dict(np_tree(jtr.guidance.mods.vae_decode_params), vcfg),
-        ucfg, vcfg)
+    mods = port_mods(jtr.guidance.mods)
+    assert (mods.controlnet is not None) == use_cn
     aux_np = {f.name: np.asarray(getattr(st.aux, f.name)) for f in dataclasses.fields(st.aux)}
     params_np = {f.name: np.asarray(getattr(st.params, f.name))
                  for f in dataclasses.fields(st.params)}
@@ -133,16 +152,20 @@ def test_fps_step_matches_jax(jax_trainer, flip, as_latent):
                                     st.active_sh_degree, st.spatial_lr_scale)
     tcams = tot.camera_tensors([TCamera(**dataclasses.asdict(c)) for c in cameras], "cpu")
     optim = jtr.optim
-    res = tot.fps_step(
-        tstate, mods, tcams, aug.tolist(), torch.from_numpy(np.asarray(text_emb)),
-        [int(t) for t in ladder], torch.from_numpy(noise), torch.from_numpy(vae_eps),
-        torch.from_numpy(np.stack(shs_noise)), torch.from_numpy(np.stack(scale_noise)),
-        flip, as_latent, lrs, width=32, height=32, capacity=capacity,
-        active_deg=st.active_sh_degree, lambda_tv=optim.lambda_tv,
-        lambda_scale=optim.lambda_scale, guidance_scale=jtr.guidance_opt.guidance_scale,
-        lambda_guidance=jtr.guidance_opt.lambda_guidance)
+    def port_step(cn):
+        return tot.fps_step(
+            tstate, mods, tcams, aug.tolist(), torch.from_numpy(np.array(text_emb)),
+            [int(t) for t in ladder], torch.from_numpy(noise), torch.from_numpy(vae_eps),
+            torch.from_numpy(np.stack(shs_noise)), torch.from_numpy(np.stack(scale_noise)),
+            flip, as_latent, lrs, width=32, height=32, capacity=capacity,
+            active_deg=st.active_sh_degree, lambda_tv=optim.lambda_tv,
+            lambda_scale=optim.lambda_scale, guidance_scale=jtr.guidance_opt.guidance_scale,
+            lambda_guidance=jtr.guidance_opt.lambda_guidance, use_cn=cn)
 
+    res = port_step(use_cn)
     np.testing.assert_allclose(float(res["loss"]), float(j_loss), rtol=1e-4)
+    if use_cn:      # the hint moves the loss well beyond the tolerance
+        assert abs(float(port_step(False)["loss"]) / float(j_loss) - 1) > 1e-2
     assert int(res["n_entries"]) == int(j_nent)
     assert int(res["n_dropped"]) == int(j_ndrop)
     for f in FIELDS:
@@ -167,9 +190,28 @@ def test_host_sampling_matches_jax_trainer(tmp_path):
     entry capacity come from the same numpy generators in the same order
     as the JAX trainer's train_step (its jitted step is replaced by a
     recorder here)."""
+    assert host_sampling_matches(tmp_path, with_cn=False) == [False] * 3
+
+
+def test_host_sampling_matches_jax_trainer_controlnet(tmp_path):
+    """The same with a ControlNet loaded and use_control_net_iter passed:
+    the gate's draw sits between the ladder and the flip on the guidance's
+    generator, in both trainers."""
+    used = host_sampling_matches(tmp_path, with_cn=True, n_steps=6)
+    assert not used[0] and any(used[1:]) and not all(used[1:]), used
+
+
+def host_sampling_matches(tmp_path, with_cn: bool, n_steps: int = 3) -> list:
+    """Drive both trainers' host sides and compare them step by step;
+    returns the ControlNet gate of each step."""
+    from dreamscene_tpu_torch.guidance import mtsd as tm
     from dreamscene_tpu_torch.utils.config import ObjectsParamsGroups as TCfg
 
-    jtr = jot.ObjectTrainer(tiny_cfg(JCfg()), exp_root=str(tmp_path / "j"), interpret=True)
+    jcfg, tcfg = tiny_cfg(JCfg()), tiny_cfg(TCfg())
+    jcfg.optimizationParams.use_control_net_iter = 1
+    tcfg.optimizationParams.use_control_net_iter = 1
+    jtr = jot.ObjectTrainer(jcfg, exp_root=str(tmp_path / "j"), interpret=True, guidance=(
+        jm.make_tiny_guidance(jcfg.guidanceParams, with_controlnet=True) if with_cn else None))
     jtr.prepare_train()
     seen = []
 
@@ -179,15 +221,18 @@ def test_host_sampling_matches_jax_trainer(tmp_path):
                              text=np.asarray(text_emb), ladder=np.asarray(ladder_ts),
                              flip=bool(rest[2]), as_latent=bool(rest[3]),
                              lrs={k: float(v) for k, v in rest[4].items()},
-                             capacity=capacity))
+                             capacity=capacity, use_cn=use_cn))
             return params, opt, aux, jnp.zeros(()), jnp.zeros((), jnp.int32), \
                 jnp.zeros((), jnp.int32)
         return step
 
     jtr._fps_step_fn = recorder
-    ttr = tot.ObjectTrainer(tiny_cfg(TCfg()), exp_root=str(tmp_path / "t"), device="cpu")
+    ttr = tot.ObjectTrainer(tcfg, exp_root=str(tmp_path / "t"), device="cpu", guidance=(
+        tm.make_tiny_guidance(tcfg.guidanceParams, with_controlnet=True, device="cpu")
+        if with_cn else None))
     ttr.prepare_train()
-    for _ in range(3):
+    used = []
+    for _ in range(n_steps):
         jtr.train_step()
         got = ttr.step_inputs()
         want = seen[-1]
@@ -199,10 +244,13 @@ def test_host_sampling_matches_jax_trainer(tmp_path):
         np.testing.assert_array_equal(np.asarray(got["aug"], np.float32), want["aug"])
         np.testing.assert_array_equal(got["text_emb"].numpy(), want["text"])
         assert got["ladder"] == want["ladder"].tolist()
-        assert (got["flip"], got["as_latent"]) == (want["flip"], want["as_latent"])
+        assert (got["use_cn"], got["flip"], got["as_latent"]) == \
+            (want["use_cn"], want["flip"], want["as_latent"])
+        used.append(got["use_cn"])
         assert {k: np.float32(v) for k, v in got["lrs"].items()} == \
             {k: np.float32(v) for k, v in want["lrs"].items()}
         assert got["capacity"] == want["capacity"]
+    return used
 
 
 def test_train_step_runs_and_unported_branches_raise(tmp_path):

@@ -270,15 +270,34 @@ def test_ply_both_ways(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_unported_options_raise(tmp_path):
+def test_controlnet_key_ignored_mesh_exported_and_mesh_devices_raise(tmp_path):
+    """guidanceParams.controlnet_model_key is read by build_sd_guidance
+    only: prepare_train builds the tiny stack without a ControlNet, as the
+    JAX trainer does. mode_args.export_mesh makes train() end with
+    `<id>_mesh.ply`. A multi-device layout (parallelParams dp*tp > 1)
+    still raises. The CLI's scene mode builds a SceneTrainer."""
+    for pkg, cfg, kw in ((JOT, _tiny_cfg(JCfg()), dict(interpret=True)),
+                         (TOT, _tiny_cfg(TCfg()), dict(device="cpu"))):
+        cfg.guidanceParams.controlnet_model_key = "some/controlnet"
+        tr = pkg.ObjectTrainer(cfg, exp_root=str(tmp_path / pkg.__name__), **kw)
+        tr.prepare_train()
+        assert getattr(tr.guidance.mods, "controlnet", None) is None
+        assert getattr(tr.guidance.mods, "controlnet_apply", None) is None
+    cfg = _tiny_cfg(TCfg(), optimizationParams__iterations=1,
+                    optimizationParams__densify_from_iter=1 << 30,
+                    reconOptimizationParams__iterations=1)
+    cfg.mode_args = {"export_mesh": True, "mesh_resolution": 32, "mesh_thresh": 0.05}
+    tr = TOT.ObjectTrainer(cfg, exp_root=str(tmp_path / "mesh"), device="cpu")
+    tr.train()
+    mesh = tr.ckpt_path / "obj1_mesh.ply"
+    header = mesh.read_bytes().split(b"end_header\n")[0].decode()
+    n_verts = int(header.split("element vertex ")[1].split()[0])
+    n_faces = int(header.split("element face ")[1].split()[0])
+    assert n_verts > 0 and n_faces > 0, header
     cfg = _tiny_cfg(TCfg())
-    cfg.guidanceParams.controlnet_model_key = "some/controlnet"
-    with pytest.raises(NotImplementedError, match="ControlNet"):
-        TOT.ObjectTrainer(cfg, exp_root=str(tmp_path), device="cpu").prepare_train()
-    cfg = _tiny_cfg(TCfg())
-    cfg.mode_args = {"export_mesh": True}
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TOT.ObjectTrainer(cfg, exp_root=str(tmp_path), device="cpu").train()
+    cfg.parallelParams.dp = 2
+    with pytest.raises(NotImplementedError, match="dp\\*tp"):
+        TOT.ObjectTrainer(cfg, exp_root=str(tmp_path), device="cpu")
     # without --object the CLI now runs the scene pipeline (ported): it
     # builds a SceneTrainer on the config and calls train()
     from dreamscene_tpu_torch.__main__ import main

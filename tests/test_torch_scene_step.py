@@ -4,8 +4,9 @@ kernels in interpret mode), on one tiny scene (32x32, two placed objects,
 a tiny env and floor, SH degree 1 everywhere): the same state (carried
 across by `convert.scene_model`), guidance weights (`convert.py`),
 cameras, ladder, ladder noise and the JAX step's own VAE posterior draw,
-recomputed from its key. One stage-1 guidance step (env trainable) and one
-stage-3 recon step (every model trainable, the objects at the fine lrs).
+recomputed from its key. One stage-1 guidance step (env trainable), once
+more with the depth ControlNet conditioning the ladder, and one stage-3
+recon step (every model trainable, the objects at the fine lrs).
 
 Tolerances: loss rtol 1e-4; n_entries / n_dropped equal; each trainable
 model's gradient per parameter group (read from Adam's first moment, 0.1*g
@@ -15,8 +16,8 @@ denom and max radii equal, gradient accumulator relative L2 <= 1e-3;
 models that do not train are returned unchanged.
 
 The host side is held separately: the same seeds give the same cameras,
-as_latent, ladders, background draws, flips, learning rates and entry
-capacity in the JAX trainer's `_run_scene_step` order.
+as_latent, ladders, background draws, ControlNet gates, flips, learning
+rates and entry capacity in the JAX trainer's `_run_scene_step` order.
 """
 
 import dataclasses
@@ -36,10 +37,10 @@ from dreamscene_tpu.training import scene_trainer as jst
 from dreamscene_tpu.utils.config import ParamsGroups as JCfg
 from dreamscene_tpu_torch import convert
 from dreamscene_tpu_torch.cameras import Camera as TCamera
-from dreamscene_tpu_torch.guidance import sd_modules as sdm
 from dreamscene_tpu_torch.training import object_trainer as tot
 from dreamscene_tpu_torch.training import scene_trainer as tst
 from dreamscene_tpu_torch.utils.config import ParamsGroups as TCfg
+from tests.test_torch_controlnet import jax_cn_guidance, port_mods
 
 torch.set_num_threads(1)
 
@@ -131,18 +132,28 @@ def jax_trainer(tmp_path_factory):
     return tr
 
 
-def port_mods(jguidance):
-    ucfg, vcfg = sdm.tiny_unet_config(), sdm.tiny_vae_config()
-    tree = jax.tree.map(np.asarray, (jguidance.mods.unet_params, jguidance.mods.vae_encode_params,
-                                     jguidance.mods.vae_decode_params))
-    return convert.guidance_modules(convert.unet_state_dict(tree[0], ucfg),
-                                    convert.vae_encoder_state_dict(tree[1], vcfg),
-                                    convert.vae_decoder_state_dict(tree[2], vcfg), ucfg, vcfg)
+@pytest.fixture(scope="module")
+def cn_guidance():
+    return jax_cn_guidance()
 
 
-@pytest.mark.parametrize("stage", ["stage 1: env, guidance", "stage 3: all, recon"])
-def test_scene_step_matches_jax(jax_trainer, stage):
+@pytest.mark.parametrize("stage", ["stage 1: env, guidance", "stage 3: all, recon",
+                                   "stage 1: env, guidance, controlnet"])
+def test_scene_step_matches_jax(jax_trainer, cn_guidance, stage):
+    """The controlnet case conditions the ladder on the ControlNet with the
+    flipped disparities in both packages."""
     jtr = jax_trainer
+    use_cn = stage.endswith("controlnet")
+    guidance = jtr.guidance
+    if use_cn:
+        jtr.guidance = cn_guidance
+    try:
+        _scene_step_matches_jax(jtr, stage, use_cn)
+    finally:
+        jtr.guidance = guidance
+
+
+def _scene_step_matches_jax(jtr, stage, use_cn):
     guidance_on = stage.startswith("stage 1")
     names = list(jtr.scene.objects)
     states = jtr._states(names)
@@ -168,7 +179,7 @@ def test_scene_step_matches_jax(jax_trainer, stage):
     capacities = tuple(s.capacity for s in states)
     degrees = tuple(s.active_sh_degree for s in states)
     step = jtr._scene_step_fn(len(ladder), len(states), capacities, degrees, trainable,
-                              guidance_on, c_batch, False, 4)
+                              guidance_on, c_batch, use_cn, 4)
     j_params, j_opt, j_aux, j_loss, j_nent, j_ndrop = step(
         tuple(s.params for s in states), tuple(s.opt for s in states),
         tuple(s.aux for s in states), jtr._cam_stack(cams), jnp.asarray(bg), text_emb,
@@ -179,18 +190,25 @@ def test_scene_step_matches_jax(jax_trainer, stage):
 
     tscene = convert.scene_model(jtr.scene)
     tstates = [tscene.objects[n].state for n in names] + [tscene.floor, tscene.env]
-    res = tst.scene_step(
-        tstates, trainable, port_mods(jtr.guidance),
-        tot.camera_tensors([TCamera(**dataclasses.asdict(c)) for c in cams], "cpu"),
-        bg.tolist(), torch.from_numpy(np.asarray(text_emb)), [int(t) for t in ladder],
-        torch.from_numpy(noise), torch.from_numpy(vae_eps), flip, as_latent, lrs_list,
-        torch.from_numpy(gt), width=32, height=32, capacity=4 * sum(capacities) // 2,
-        guidance_on=guidance_on, lambda_tv=optp.lambda_tv,
-        lambda_tv_depth=optp.lambda_tv_depth, lambda_scale=optp.lambda_scale,
-        guidance_scale=jtr.guidance_opt.guidance_scale,
-        lambda_guidance=jtr.guidance_opt.lambda_guidance)
+    mods = port_mods(jtr.guidance.mods)
+    assert (mods.controlnet is not None) == use_cn
 
+    def port_step(cn):
+        return tst.scene_step(
+            tstates, trainable, mods,
+            tot.camera_tensors([TCamera(**dataclasses.asdict(c)) for c in cams], "cpu"),
+            bg.tolist(), torch.from_numpy(np.array(text_emb)), [int(t) for t in ladder],
+            torch.from_numpy(noise), torch.from_numpy(vae_eps), flip, as_latent, lrs_list,
+            torch.from_numpy(gt), width=32, height=32, capacity=4 * sum(capacities) // 2,
+            guidance_on=guidance_on, lambda_tv=optp.lambda_tv,
+            lambda_tv_depth=optp.lambda_tv_depth, lambda_scale=optp.lambda_scale,
+            guidance_scale=jtr.guidance_opt.guidance_scale,
+            lambda_guidance=jtr.guidance_opt.lambda_guidance, use_cn=cn)
+
+    res = port_step(use_cn)
     np.testing.assert_allclose(float(res["loss"]), float(j_loss), rtol=1e-4)
+    if use_cn:      # the hint moves the loss well beyond the tolerance
+        assert abs(float(port_step(False)["loss"]) / float(j_loss) - 1) > 1e-2
     assert int(res["n_entries"]) == int(j_nent) > 0
     assert int(res["n_dropped"]) == int(j_ndrop)
     for m, tr in enumerate(trainable):
@@ -225,10 +243,33 @@ def test_host_sampling_matches_jax_trainer(tmp_path, monkeypatch):
     cameras, background rows, prompt rows, ladders, flips, as_latent, lrs
     and entry capacity (the JAX step is replaced by a recorder, the port's
     `scene_step` likewise)."""
-    jtr = jst.SceneTrainer(tiny_scene_cfg(JCfg()), exp_root=str(tmp_path / "j"),
-                           interpret=True, env_density=ENV_DENSITY)
-    ttr = tst.SceneTrainer(tiny_scene_cfg(TCfg()), exp_root=str(tmp_path / "t"),
-                           device="cpu", env_density=ENV_DENSITY)
+    assert host_sampling_matches(tmp_path, monkeypatch, with_cn=False) == [False] * 3
+
+
+def test_host_sampling_matches_jax_trainer_controlnet(tmp_path, monkeypatch):
+    """The same with a ControlNet loaded and use_control_net_iter passed:
+    the gate is drawn only for guidance steps, between the ladder and the
+    flip on the guidance's generator, in both trainers."""
+    used = host_sampling_matches(tmp_path, monkeypatch, with_cn=True, n_stage1=5)
+    assert not used[0] and any(used[1:-1]) and not all(used[1:-1]) and not used[-1], used
+
+
+def host_sampling_matches(tmp_path, monkeypatch, with_cn: bool, n_stage1: int = 2) -> list:
+    """`n_stage1` stage-1 steps and one recon step of both trainers,
+    compared step by step; returns the ControlNet gate of each step."""
+    from dreamscene_tpu_torch.guidance import mtsd as tm
+
+    jcfg, tcfg = tiny_scene_cfg(JCfg()), tiny_scene_cfg(TCfg())
+    jcfg.sceneOptimizationParams.use_control_net_iter = 1
+    tcfg.sceneOptimizationParams.use_control_net_iter = 1
+    jtr = jst.SceneTrainer(jcfg, exp_root=str(tmp_path / "j"), interpret=True,
+                           env_density=ENV_DENSITY, guidance=(
+                               jm.make_tiny_guidance(jcfg.guidanceParams, with_controlnet=True)
+                               if with_cn else None))
+    ttr = tst.SceneTrainer(tcfg, exp_root=str(tmp_path / "t"), device="cpu",
+                           env_density=ENV_DENSITY, guidance=(
+                               tm.make_tiny_guidance(tcfg.guidanceParams, with_controlnet=True,
+                                                     device="cpu") if with_cn else None))
     write_objects(jtr.ckpt_path)
     write_objects(ttr.ckpt_path)
     jtr.prepare_train_scene()
@@ -244,7 +285,7 @@ def test_host_sampling_matches_jax_trainer(tmp_path, monkeypatch):
                 text=np.asarray(text_emb), ladder=np.asarray(ladder_ts).tolist(),
                 flip=bool(flip), as_latent=bool(as_latent), trainable=trainable,
                 lrs=[{k: np.float32(v) for k, v in lrs.items()} for lrs in lrs_list],
-                capacity=int(cap_mult * sum(capacities)) // 2))
+                capacity=int(cap_mult * sum(capacities)) // 2, use_cn=use_cn))
             z = jnp.zeros((), jnp.int32)
             return params_list, opt_list, aux_list, jnp.zeros(()), z, z
         return step
@@ -256,7 +297,7 @@ def test_host_sampling_matches_jax_trainer(tmp_path, monkeypatch):
             bg=np.asarray(bg_rows, np.float32), text=text_emb.numpy(), ladder=list(ladder),
             flip=bool(flip), as_latent=bool(as_latent), trainable=trainable,
             lrs=[{k: np.float32(v) for k, v in lrs.items()} for lrs in lrs_list],
-            capacity=kw["capacity"]))
+            capacity=kw["capacity"], use_cn=kw["use_cn"]))
         z = torch.zeros((), dtype=torch.int32)
         return dict(params=[s.params for s in states], opt=[s.opt for s in states],
                     aux=[s.aux for s in states], loss=torch.zeros(()), n_entries=z,
@@ -266,18 +307,19 @@ def test_host_sampling_matches_jax_trainer(tmp_path, monkeypatch):
     monkeypatch.setattr(tst, "scene_step", t_recorder)
     for tr in (jtr, ttr):
         tr.iters = 4
-        cams = tr._stage1_cams(2 * 2)
-        for i in range(2):
+        cams = tr._stage1_cams(2 * n_stage1)
+        for i in range(n_stage1):
             tr.scene_train_step(cams[2 * i:2 * i + 2], "env")
         gt = (jnp.zeros((3, 32, 32)) if tr is jtr else torch.zeros((3, 32, 32)))
         tr._run_scene_step(cams[:1], "all", False, True, 1.0, guidance_on=False,
                            gt_images=[gt], optp=tr.cfg.reconSceneOptimizationParams)
-    assert len(seen_j) == len(seen_t) == 3
+    assert len(seen_j) == len(seen_t) == n_stage1 + 1
     for want, got in zip(seen_j, seen_t):
         np.testing.assert_array_equal(got["view"], want["view"])
         np.testing.assert_array_equal(got["bg"], want["bg"])
         np.testing.assert_array_equal(got["text"], want["text"])
-        for k in ("ladder", "flip", "as_latent", "trainable", "lrs", "capacity"):
+        for k in ("ladder", "use_cn", "flip", "as_latent", "trainable", "lrs", "capacity"):
             assert got[k] == want[k], k
     assert seen_t[0]["trainable"] == (False, False, False, True)
-    assert seen_t[2]["trainable"] == (True,) * 4
+    assert seen_t[-1]["trainable"] == (True,) * 4
+    return [r["use_cn"] for r in seen_t]
