@@ -53,7 +53,8 @@ Phases (any failure exits non-zero; nothing is caught):
      compress and four placed instances): 2 + 5 stage-1 and 5 stage-2
      scene steps with DS_FLASH_ATTN unset and again set, launch counts
      checked, a profiled step each way (scene.* phases), K1-K3 held and
-     timed on a stage-1 view;
+     timed on a stage-1 view and on its rows 256-511 as a tp-2 rank of
+     phase 13c bins them (chunk 256);
   7. SceneTrainer.train(n_stage3=1, make_videos=True) on that scene with
      3 stage-1 and 1 stage-2 steps (gate set): checkpoints, the 80-view
      pseudo-GT bank and recon steps, the final video, scene_final_model.ply
@@ -83,7 +84,28 @@ Phases (any failure exits non-zero; nothing is caught):
  12. mesh export: phase 3b's train() with mode_args.export_mesh (128^3),
      the mesh's counts and extract_fields' wall time, extract_fields at
      64^3 on its state, card against CPU, and at 128^3 with its
-     slab-narrowed cull against the JAX package's plain cull (same grid).
+     slab-narrowed cull against the JAX package's plain cull (same grid);
+ 13. the multi-rank path (parallel/), its ranks spawned by
+     parallel/launch.run_ranks after the kernels are built, all on cuda:0
+     over gloo (NCCL refuses two ranks on one card), DS_FLASH_ATTN=1; their
+     times are those of ranks sharing one card, not scaling numbers:
+     13a. K1-K3 at the tile bands of phase 2's 50K object (512x256 and
+     512x128 from row 256; chunk 256) against their plain versions, and
+     the bands of render(pixel_offset_y=, full_height=) stacked against
+     the full render (phase 6 checks them on a band of config #4 too);
+     13b. phase 3's object on dp 2 x tp 2: one step on explicit inputs
+     against the same step in one process (guidance in float32), the same
+     step in bf16 against the one-process bf16 step, the dp split taken in
+     one process (each dp rank's cameras as one batch) and the float32
+     step (bf16's gap, measured on the one-process steps), 2 + 3
+     ObjectTrainer steps (launch counts per rank), a profiled step, and
+     with shard_splats 3 steps, a forced densify and one more step;
+     13c. phase 6's scene on dp 1 x tp 2 with shard_splats: one stage-1 step
+     against the same step in one process, two stage-1 steps and a stage-3
+     recon step, a profiled step. Per rank: step ms, host seconds inside
+     collectives, MB all-gathered, peak memory, and the summed span of its
+     kernels (the card time-slices the ranks' contexts, so a span holds
+     other ranks' slices: not the rank's work).
 The line before the last is the kernel table as JSON (launches by path;
 K1-K3 also at both scene shapes); the last line is
 {"ok": true, "device": {...}}.
@@ -136,12 +158,16 @@ SOURCES = {
 K1_K3 = ("expand_entries", "composite_fwd", "composite_bwd")
 K4 = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 BUILD = Path(__file__).resolve().parent / "build"
-# K4's shapes on the main path at config #2 width ([b, h, n, d], bf16),
+# K4's shapes on the main path at config #2 width ([b, h, n, d], bf16):
+# one process (C_batch 4), a rank of phase 13b's dp 2 mesh (b_local 2),
 # plus one float32 case; the row each kernel's table entry reports
 K4_SHAPES = (("unet 64x64 self-attn", (12, 5, 4096, 64), torch.bfloat16),
              ("unet 32x32 self-attn", (12, 10, 1024, 64), torch.bfloat16),
              ("vae mid-attn, encode/pseudo-GT batch 4", (4, 1, 4096, 512), torch.bfloat16),
              ("vae mid-attn, viz batch 1", (1, 1, 4096, 512), torch.bfloat16),
+             ("mesh rank unet 64x64 self-attn", (6, 5, 4096, 64), torch.bfloat16),
+             ("mesh rank unet 32x32 self-attn", (6, 10, 1024, 64), torch.bfloat16),
+             ("mesh rank vae mid-attn, encode batch 2", (2, 1, 4096, 512), torch.bfloat16),
              ("f32 check", (2, 5, 4096, 64), torch.float32))
 K4_ROW = {"flash_fwd": "unet 64x64 self-attn",
           "flash_bwd_dkv": "vae mid-attn, encode/pseudo-GT batch 4",
@@ -443,12 +469,9 @@ def check_flash(label, shape, dtype, timing=True):
     return row
 
 
-def run_slice():
-    """Phase 3: the object FPS step at config #2 width."""
-    from dreamscene_tpu_torch import kernels
-    from dreamscene_tpu_torch.guidance import mtsd
-    from dreamscene_tpu_torch.guidance.sd_modules import VAEConfig, sd21_unet_config
-    from dreamscene_tpu_torch.training.object_trainer import ObjectTrainer
+def slice_cfg(dp=1, tp=1, shard_splats=False):
+    """Phase 3's configuration (BASELINE.json config #2 width), on a dp x tp
+    mesh when dp * tp > 1."""
     from dreamscene_tpu_torch.utils.config import ObjectsParamsGroups
 
     cfg = ObjectsParamsGroups()
@@ -465,11 +488,31 @@ def run_slice():
     cfg.generateCamParams.image_w = 512
     cfg.generateCamParams.image_h = 512
     cfg.mode_args = {}
+    cfg.parallelParams.dp, cfg.parallelParams.tp = dp, tp
+    cfg.parallelParams.shard_splats = shard_splats
+    return cfg
 
+
+def sd21_guidance(guidance_params, device="cuda", dtype=torch.bfloat16):
+    """The seeded full-width SD2.1-architecture UNet + VAE (77 tokens),
+    computing in `dtype` (bf16, as the path runs it; f32 for the mesh
+    parity steps)."""
+    from dreamscene_tpu_torch.guidance import mtsd
+    from dreamscene_tpu_torch.guidance.sd_modules import VAEConfig, sd21_unet_config
+
+    return mtsd.make_tiny_guidance(
+        guidance_params, unet_config=dataclasses.replace(sd21_unet_config(), dtype=dtype),
+        vae_config=dataclasses.replace(VAEConfig(), dtype=dtype), token_len=77, device=device)
+
+
+def run_slice():
+    """Phase 3: the object FPS step at config #2 width."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.training.object_trainer import ObjectTrainer
+
+    cfg = slice_cfg()
     t0 = time.perf_counter()
-    guidance = mtsd.make_tiny_guidance(
-        cfg.guidanceParams, unet_config=sd21_unet_config(), vae_config=VAEConfig(),
-        token_len=77, device="cuda")
+    guidance = sd21_guidance(cfg.guidanceParams)
     tr = ObjectTrainer(cfg, guidance=guidance, exp_root=fresh_dir("slice"),
                        device="cuda")
     tr.prepare_train()
@@ -651,8 +694,6 @@ def run_train():
     (mode_args.export_mesh, 128^3), then extract_fields at 64^3 on its
     state, card against CPU, and at 128^3 timed with both culls."""
     from dreamscene_tpu_torch import kernels
-    from dreamscene_tpu_torch.guidance import mtsd
-    from dreamscene_tpu_torch.guidance.sd_modules import VAEConfig, sd21_unet_config
     from dreamscene_tpu_torch.models import fields, mesh
     from dreamscene_tpu_torch.models.gaussians import num_active
     from dreamscene_tpu_torch.models.ply import load_splat_ply
@@ -674,9 +715,7 @@ def run_train():
     cfg.mode_args = dict(cfg.mode_args or {}, export_mesh=True, mesh_resolution=128,
                          mesh_thresh=0.05)
     t0 = time.perf_counter()
-    guidance = mtsd.make_tiny_guidance(
-        cfg.guidanceParams, unet_config=sd21_unet_config(), vae_config=VAEConfig(),
-        token_len=77, device="cuda")
+    guidance = sd21_guidance(cfg.guidanceParams)
     tr = OT.ObjectTrainer(cfg, guidance=guidance, exp_root=fresh_dir("train"), device="cuda")
     tr.step = 1496
     log(f"[train] set-up {time.perf_counter() - t0:.1f}s, exp {tr.exp_path}")
@@ -1322,21 +1361,20 @@ def run_scene_steps(cn):
     four placed instances, env and floor), then 2 + 5 stage-1 and 5 stage-2
     steps with DS_FLASH_ATTN unset and again with it set, a profiled
     stage-1 step each way, and K1-K3 held against their plain versions on
-    a stage-1 view of this scene; then phase 9b, two stage-1 steps with
-    the ControlNet `cn` conditioning both, gate set. Returns the trainer,
-    launch counts by gate (and of phase 9b), kernel rows and errors."""
+    a stage-1 view of this scene and on the band of that view a rank of
+    phase 13c bins; then phase 9b, two stage-1 steps with the ControlNet
+    `cn` conditioning both, gate set. Returns the trainer, launch counts
+    by gate (and of phase 9b), kernel rows of the view and of the band,
+    and errors."""
     from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.bench.scenes import binned_inputs
-    from dreamscene_tpu_torch.guidance import mtsd
-    from dreamscene_tpu_torch.guidance.sd_modules import VAEConfig, sd21_unet_config
     from dreamscene_tpu_torch.models.scene import final_combine_all
     from dreamscene_tpu_torch.training.scene_trainer import SceneTrainer
     from dreamscene_tpu_torch.utils.config import load_config
 
     cfg = load_config(str(SCENE_CFG), ["log.exp_name=scene"])
     t0 = time.perf_counter()
-    guidance = mtsd.make_tiny_guidance(cfg.guidanceParams, unet_config=sd21_unet_config(),
-                                       vae_config=VAEConfig(), token_len=77, device="cuda")
+    guidance = sd21_guidance(cfg.guidanceParams)
     tr = SceneTrainer(cfg, guidance=guidance, exp_root=fresh_dir("scene"), device="cuda",
                       env_density=1.0)
     write_scene_objects(tr)
@@ -1395,9 +1433,18 @@ def run_scene_steps(cn):
     inp = binned_inputs(combined, cams1[0], 32, 16, capacity=capacity,
                         sh_degree=min(st.active_sh_degree for st in sts))
     errs, rows = check_kernels("config #4 scene 512^2 32x16 (stage-1 view)", inp, timing=True)
+    # the tile band a tp-2 rank of phase 13c bins: rows 256-511 of the same
+    # view, every record (a shard's are gathered), chunk 256, the per-band
+    # entry capacity of SceneTrainer.step_inputs
+    inp = binned_inputs(combined, cams1[0], 32, 16, capacity=max(capacity // 2, 4096),
+                        chunk=256, sh_degree=min(st.active_sh_degree for st in sts),
+                        band=(256, 256))
+    e, band_rows = check_kernels("config #4 mesh band 512x256 from row 256 (chunk 256)", inp,
+                                 timing=True)
+    errs = {k: max(errs[k], e[k]) for k in K1_K3}
     del combined, inp
     counts_by_gate["controlnet"] = scene_controlnet_steps(tr, cn)
-    return tr, counts_by_gate, rows, errs
+    return tr, counts_by_gate, rows, band_rows, errs
 
 
 def scene_controlnet_steps(tr, cn, n=2):
@@ -1619,6 +1666,519 @@ def small_scene_parity():
         assert int(res_cpu["n_entries"]) == int(res_gpu["n_entries"])
 
 
+# ------------------------------------------------------------ mesh (parallel/)
+MESH_TIMEOUT_S = 600          # bounds each collective and each phase's ranks
+LABEL = "ranks sharing one H100 over gloo, not a scaling number"
+
+
+def run_band_kernels():
+    """Phase 13a: the mesh path's tile bands of phase 2's 50K-splat object
+    (512 wide, 32x16 tiles, chunk 256 as parallel/sharded_render renders
+    them): K1-K3 held against their plain versions at 512x256 from row 256
+    (tp 2; timed) and at 512x128 from row 256 (a tp-4 band; the one from
+    row 384 holds no entry of this object); then the bands of the
+    rasterizer's `render(pixel_offset_y=, full_height=)` stacked against
+    the full render, for tp 2 and tp 4, on the card (kernels) and on the
+    CPU (plain versions). Returns (kernel rows of the tp-2 band, errors)."""
+    from dreamscene_tpu_torch.bench.scenes import binned_inputs
+    from dreamscene_tpu_torch.ops.rasterizer import render
+    from dreamscene_tpu_torch.training.object_trainer import camera_tensors
+
+    st, cam = make_scene(50_000, 512, 512, seed=50_000)
+    errs, rows = {k: 0.0 for k in K1_K3}, None
+    for band_h, first, timing in ((256, 256, True), (128, 256, False)):
+        inp = binned_inputs(st, cam, 32, 16, chunk=256, band=(first, band_h))
+        assert int(inp["binned"].n_entries) > 0
+        e, r = check_kernels(f"band 512x{band_h} from row {first} (50K, 32x16, chunk 256)",
+                             inp, timing)
+        errs = {k: max(errs[k], e[k]) for k in K1_K3}
+        rows = r or rows
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        kw = dict(means3d=st.get_xyz, scales=st.get_scaling, quats=st.get_rotation,
+                  opacities=st.get_opacity[:, 0], shs=st.get_features,
+                  valid_mask=st.aux["active"], **camera_tensors([cam], "cuda")[0])
+        kw = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in kw.items()}
+        kw.update(width=512, bg=torch.zeros(3, device=dev), sh_degree=2, capacity=1 << 20,
+                  chunk=256, device=dev)
+        with torch.no_grad():
+            full = render(**kw, height=512)
+            assert int(full["n_dropped"]) == 0
+            for n_tp in (2, 4):
+                h = 512 // n_tp
+                bands = [render(**kw, height=h, pixel_offset_y=t * h, full_height=512)
+                         for t in range(n_tp)]
+                assert all(torch.equal(b["radii"], full["radii"]) for b in bands)
+                assert all(int(b["n_dropped"]) == 0 for b in bands)
+                for key, dim in (("image", 1), ("alpha", 0), ("depth", 0)):
+                    got = torch.cat([b[key] for b in bands], dim=dim)
+                    bad = ~torch.isclose(got, full[key], atol=1e-5, rtol=1e-4)
+                    stats[f"{dev} tp {n_tp} {key}"] = {
+                        "max_abs_diff": float((got - full[key]).abs().max()),
+                        "values_beyond_tol": int(bad.sum()), "values": bad.numel()}
+    log("[mesh] bands stacked against the full 512^2 render (atol 1e-5, rtol 1e-4): "
+        + json.dumps(stats))
+    # the band shift rounds the shifted screen y of splats far from the band
+    # and so moves a few values across the 1/255 alpha cut; the kernels must
+    # add nothing to what the plain versions show
+    for key, v in stats.items():
+        if key.startswith("cuda"):
+            ref = stats["cpu" + key[4:]]
+            assert v["values_beyond_tol"] == ref["values_beyond_tol"], (key, v, ref)
+            assert abs(v["max_abs_diff"] - ref["max_abs_diff"]) <= 1e-5, (key, v, ref)
+            assert v["values_beyond_tol"] <= 1e-4 * v["values"], (key, v)
+    return rows, errs
+
+
+def weight_gib(mods) -> float:
+    return sum(p.numel() * p.element_size() for m in (mods.unet, mods.vae_encoder,
+                                                       mods.vae_decoder)
+               for p in m.parameters()) / 2**30
+
+
+def weight_sum(mods) -> float:
+    """float64 sum of every UNet and VAE weight: ranks that build the same
+    seeded stack hold the same number."""
+    return float(sum(p.double().sum() for m in (mods.unet, mods.vae_encoder, mods.vae_decoder)
+                     for p in m.parameters()))
+
+
+def busy_ms(step_fn) -> float:
+    """Summed spans of the kernels one `step_fn()` launches (torch.profiler):
+    the device busy time of a process alone on the card; for a rank
+    sharing it, spans that include the other ranks' time slices."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    return sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("fps.", "scene.")) and e.name != "controlnet")
+
+
+def mesh_step(fn, rungs=None) -> dict:
+    """One synchronized step, with the collectives' counters zeroed first."""
+    from dreamscene_tpu_torch.parallel import collectives as X
+
+    X.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = fn()
+    torch.cuda.synchronize()
+    rec = dict(ms=(time.perf_counter() - t0) * 1e3, loss=float(loss),
+               collective_s=X.STATS["seconds"], collective_calls=X.STATS["calls"],
+               gathered_mb=X.STATS["bytes_gathered"] / 2**20)
+    if rungs is not None:
+        rec["n_rungs"] = rungs()
+    return rec
+
+
+class DpShare:
+    """Coordinate (dp_i, 0) of a dp x 1 mesh, taken in this process with no
+    group: fps_step(mesh=DpShare(n, i)) computes what dp rank i of the
+    mesh computes, its cameras as one batch, and the shares' losses and
+    gradients sum to the mesh step's."""
+
+    def __init__(self, n_dp: int, dp_i: int):
+        self.shape, self.coords = {"dp": n_dp, "tp": 1}, {"dp": dp_i, "tp": 0}
+        self.size, self.ranks, self.world_group = n_dp, list(range(n_dp)), None
+
+    def group(self, axis):
+        return None
+
+    def ranks_of(self, axis):
+        return self.ranks if axis == "dp" else [self.coords["dp"]]
+
+
+def rel_l2(a, b) -> float:
+    den = float(b.double().norm())
+    return float((a.double() - b.double()).norm()) / den if den > 0 else float(a.abs().max())
+
+
+def mesh_object_rank(rank, world, d):
+    """Phase 13b on one of four ranks (dp 2 x tp 2) sharing cuda:0 over gloo:
+    the explicit step the parent took alone, then ObjectTrainer's steps,
+    replicated and with shard_splats."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.models.gaussians import num_active
+    from dreamscene_tpu_torch.parallel import sharded_render as SR
+    from dreamscene_tpu_torch.training.object_trainer import ObjectTrainer, fps_step
+
+    d = Path(d)
+    inp = torch.load(d / "inputs.pt", map_location="cuda:0", weights_only=False)
+    cfg = slice_cfg(2, 2)
+    guidance = sd21_guidance(cfg.guidanceParams, device="cuda:0", dtype=torch.float32)
+    assert weight_sum(guidance.mods) == inp["weight_sum"], "ranks built other weights"
+    mesh = SR.make_mesh(2, 2)
+    out = {"coords": mesh.coords}
+
+    res = fps_step(**inp["step"], mods=guidance.mods, mesh=mesh)
+    torch.cuda.synchronize()
+    out["parity"] = dict(loss=float(res["loss"]),
+                         grads={k: v.cpu() for k, v in res["grads"].items()},
+                         params={k: v.cpu() for k, v in res["params"].items()},
+                         n_entries=int(res["n_entries"]), n_dropped=int(res["n_dropped"]))
+    del res, guidance
+    torch.cuda.empty_cache()
+    guidance = sd21_guidance(cfg.guidanceParams, device="cuda:0")
+    res = fps_step(**inp["step"], mods=guidance.mods, mesh=mesh)
+    out["parity_bf16"] = dict(loss=float(res["loss"]),
+                              grads={k: v.cpu() for k, v in res["grads"].items()})
+    del res, inp
+
+    tr = ObjectTrainer(cfg, guidance=guidance, exp_root=str(d / "replicated"), device="cuda:0")
+    tr.prepare_train()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    recs = [mesh_step(tr.train_step, lambda: tr.last_stats["n_rungs"])
+            for _ in range(N_STEPS_WARM + 3)]
+    counts = dict(kernels.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy = busy_ms(tr.train_step)
+    out["steps"] = dict(recs=recs, counts=counts, peak_gib=peak, busy_ms=busy,
+                        xyz=tr.state.params["xyz"].cpu())
+    del tr
+
+    cfg = slice_cfg(2, 2, shard_splats=True)
+    tr = ObjectTrainer(cfg, guidance=guidance, exp_root=str(d / "shard"), device="cuda:0")
+    tr.prepare_train()
+    xyz0 = tr.state.params["xyz"].clone()
+    torch.cuda.reset_peak_memory_stats()
+    recs = [mesh_step(tr.train_step) for _ in range(3)]
+    st = tr.state
+    rows = {"params": st.params["xyz"].shape[0], "mu": st.opt.mu["xyz"].shape[0],
+            "nu": st.opt.nu["scaling"].shape[0], "aux": st.aux["active"].shape[0],
+            "global": st.global_capacity, "background": tuple(st.params["background"].shape)}
+    whole = tr._whole_state(st)
+    moved = float((whole.params["xyz"] - xyz0).abs().max())
+    # one forced densify (test_parallel.py:254-260) at the next step
+    optim = tr.optim
+    optim.densify_from_iter, optim.densification_interval = 1, 4
+    optim.densify_until_iter, optim.densify_grad_threshold = 10, 1e-9
+    optim.opacity_reset_interval = 1 << 30
+    n0 = num_active(whole)
+    recs.append(mesh_step(tr.train_step))
+    n1 = num_active(tr.state)
+    recs.append(mesh_step(tr.train_step))           # sharded again after the densify
+    out["shard"] = dict(recs=recs, rows=rows, moved=moved, n0=n0, n1=n1,
+                        rows_after=tr.state.params["xyz"].shape[0],
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    torch.save(out, d / f"out_{rank}.pt")
+
+
+def reckon_peak(label, single_peak, weights_gib, share):
+    """The per-rank peak reckoned before the ranks run: the weights whole,
+    the rest of the single-process peak at the rank's share."""
+    est = weights_gib + (single_peak - weights_gib) * share
+    log(f"[mesh] {label}: single-process peak {single_peak:.1f} GiB, weights "
+        f"{weights_gib:.1f} GiB; per-rank peak reckoned {est:.1f} GiB")
+    return est
+
+
+def run_mesh_objects():
+    """Phase 13b: phase 3's object (config #2 width, DS_FLASH_ATTN=1) on
+    four ranks, dp 2 x tp 2, sharing cuda:0 over gloo. The parent takes
+    one step alone on explicit inputs and frees the card; each rank then
+    takes the same step on the mesh (held against it: loss rtol 1e-3 /
+    atol 1e-4, every group's gradient within relative L2 1e-3, parameters
+    bit-equal on every rank), 2 + 3 ObjectTrainer steps (timed; launch
+    counts), a profiled step, and with shard_splats 3 steps, a forced
+    densify and one more step. The step held at 1e-3 computes the guidance
+    in float32. In bf16 the step's gradient moves by ~8% (relative L2)
+    under any perturbation of its inputs or batching: the one-process
+    step, the dp split taken in one process (`DpShare`: each dp rank's two
+    cameras as one batch, the shares summed) and the mesh are each that
+    far from one another. So the mesh's bf16 step is held to that noise,
+    measured in this run: per group, its gaps to the one-process bf16 step
+    and to the split at most twice the split's gap to the one-process
+    step, and its gap to the float32 step at most twice the larger of the
+    one-process bf16 steps' gaps to it. Returns the launches of the timed
+    steps, summed over the ranks."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.parallel.launch import run_ranks
+    from dreamscene_tpu_torch.training.object_trainer import ObjectTrainer, fps_step
+
+    d = Path(fresh_dir("mesh_objects"))
+    os.environ["DS_FLASH_ATTN"] = "1"
+    try:
+        cfg = slice_cfg()
+        guidance = sd21_guidance(cfg.guidanceParams, dtype=torch.float32)
+        weights_gib = weight_gib(guidance.mods)
+        tr = ObjectTrainer(cfg, guidance=guidance, exp_root=str(d / "single"), device="cuda")
+        tr.prepare_train()
+        inp = tr.step_inputs()
+        torch.cuda.reset_peak_memory_stats()
+        res = fps_step(**inp)
+        single_peak = torch.cuda.max_memory_allocated() / 2**30
+        ref = dict(loss=float(res["loss"]), grads={k: v.cpu() for k, v in res["grads"].items()})
+        step = {k: v for k, v in inp.items() if k not in ("mods", "mesh")}
+        torch.save(dict(step=step, weight_sum=weight_sum(guidance.mods)), d / "inputs.pt")
+        del tr, guidance, res
+        torch.cuda.empty_cache()
+        # the same step in bf16, as the ranks' timed steps run it
+        mods = sd21_guidance(cfg.guidanceParams).mods
+        res = fps_step(**dict(inp, mods=mods))
+        ref_bf16 = dict(loss=float(res["loss"]),
+                        grads={k: v.cpu() for k, v in res["grads"].items()})
+        del res
+        # the dp split taken in this process: the batching alone
+        split = [fps_step(**dict(inp, mods=mods, mesh=DpShare(2, i))) for i in range(2)]
+        split_bf16 = dict(loss=sum(float(r["loss"]) for r in split),
+                          grads={k: sum(r["grads"][k].cpu() for r in split)
+                                 for k in ref_bf16["grads"]})
+        del split
+        single = mesh_step(lambda: fps_step(**dict(inp, mods=mods))["loss"])
+        single["busy_ms"] = busy_ms(lambda: fps_step(**dict(inp, mods=mods)))
+        del mods, inp, step
+        torch.cuda.empty_cache()
+        est = reckon_peak("object mesh, float32 step (b_local 2 of C_batch 4)", single_peak,
+                          weights_gib, 0.5)
+        t0 = time.perf_counter()
+        run_ranks(mesh_object_rank, 4, (str(d),), store_dir=str(d), device="cuda:0",
+                  timeout_s=MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("DS_FLASH_ATTN", None)
+    outs = [torch.load(d / f"out_{r}.pt", weights_only=False) for r in range(4)]
+
+    par = [o["parity"] for o in outs]
+    rel = {k: max(rel_l2(p["grads"][k], g) for p in par) for k, g in ref["grads"].items()
+           if k != "background"}
+    log(f"[mesh] object step, dp 2 x tp 2 against the single process: loss "
+        f"{[p['loss'] for p in par]} vs {ref['loss']!r}; gradient relative L2 {json.dumps(rel)}")
+    for p in par:
+        assert math.isclose(p["loss"], ref["loss"], rel_tol=1e-3, abs_tol=1e-4), (p["loss"], ref)
+        assert all(torch.equal(p["params"][k], par[0]["params"][k]) for k in p["params"])
+    assert all(v <= 1e-3 for v in rel.values()), rel
+    # the same step with the guidance in bf16, as the path runs it, against
+    # the one-process bf16 step (a batch of 4), the dp split in one process
+    # (two batches of 2, as the ranks take them) and the float32 step
+    groups = [k for k in ref_bf16["grads"] if k != "background"]
+    par16 = [o["parity_bf16"] for o in outs]
+
+    def gaps(grads, to):
+        return {k: max(rel_l2(g[k], to[k]) for g in grads) for k in groups}
+
+    bf16 = {"mesh_to_batch_of_4": gaps([p["grads"] for p in par16], ref_bf16["grads"]),
+            "mesh_to_dp_split": gaps([p["grads"] for p in par16], split_bf16["grads"]),
+            "dp_split_to_batch_of_4": gaps([split_bf16["grads"]], ref_bf16["grads"]),
+            "mesh_to_f32": gaps([p["grads"] for p in par16], ref["grads"]),
+            "batch_of_4_to_f32": gaps([ref_bf16["grads"]], ref["grads"]),
+            "dp_split_to_f32": gaps([split_bf16["grads"]], ref["grads"])}
+    log(f"[mesh] the same step in bf16: loss {[p['loss'] for p in par16]} vs "
+        f"{ref_bf16['loss']!r} (batch of 4), {split_bf16['loss']!r} (dp split in one "
+        f"process), {ref['loss']!r} (float32); gradient relative L2 {json.dumps(bf16)}")
+    for k in groups:
+        noise = bf16["dp_split_to_batch_of_4"][k]
+        assert bf16["mesh_to_batch_of_4"][k] <= 2.0 * noise, (k, bf16)
+        assert bf16["mesh_to_dp_split"][k] <= 2.0 * noise, (k, bf16)
+        assert bf16["mesh_to_f32"][k] <= 2.0 * max(bf16["batch_of_4_to_f32"][k],
+                                                   bf16["dp_split_to_f32"][k]), (k, bf16)
+    c = 4
+    b_local = 2
+    for o in outs:
+        s = o["steps"]
+        n = len(s["recs"])
+        expect = {k: b_local * n for k in K1_K3}
+        expect.update(k4_expect([r["n_rungs"] for r in s["recs"]], 10, n))
+        assert s["counts"] == expect, (s["counts"], expect)
+        assert all(math.isfinite(r["loss"]) for r in s["recs"])
+        assert torch.equal(s["xyz"], outs[0]["steps"]["xyz"])
+        sh = o["shard"]
+        half = sh["rows"]["global"] // 2
+        assert {k: sh["rows"][k] for k in ("params", "mu", "nu", "aux")} == \
+            {k: half for k in ("params", "mu", "nu", "aux")}, sh["rows"]
+        assert sh["rows"]["background"] == (3,) and sh["rows_after"] == half
+        assert sh["moved"] > 0 and sh["n1"] != sh["n0"], sh
+        assert all(math.isfinite(r["loss"]) for r in sh["recs"])
+    per_rank = []
+    for r, o in enumerate(outs):
+        timed = o["steps"]["recs"][N_STEPS_WARM:]
+        per_rank.append({
+            "rank": r, "coords": o["coords"],
+            "step_ms": [x["ms"] for x in timed],
+            "step_ms_median": float(np.median([x["ms"] for x in timed])),
+            "collective_s_per_step": float(np.mean([x["collective_s"] for x in timed])),
+            "collective_calls_per_step": float(np.mean([x["collective_calls"] for x in timed])),
+            "gathered_mb_per_step": float(np.mean([x["gathered_mb"] for x in timed])),
+            "kernel_span_ms_time_sliced": o["steps"]["busy_ms"],
+            "peak_gib": o["steps"]["peak_gib"],
+            "shard_step_ms": [x["ms"] for x in o["shard"]["recs"]],
+            "shard_gathered_mb_per_step": float(np.mean(
+                [x["gathered_mb"] for x in o["shard"]["recs"]])),
+            "shard_collective_s_per_step": float(np.mean(
+                [x["collective_s"] for x in o["shard"]["recs"]])),
+            "shard_peak_gib": o["shard"]["peak_gib"]})
+    counts = {k: sum(o["steps"]["counts"][k] for o in outs) for k in kernels.KERNEL_NAMES}
+    log(json.dumps({"mesh_object_steps": {
+        "label": LABEL, "ranks": per_rank, "ranks_wall_s": wall,
+        "single_process": {"step_ms": single["ms"], "device_busy_ms": single["busy_ms"]},
+        "single_process_peak_gib_f32": single_peak, "peak_reckoned_gib_f32": est,
+        "densify": {"before": outs[0]["shard"]["n0"], "after": outs[0]["shard"]["n1"]},
+        "launches_summed": counts, "gradient_rel_l2": rel,
+        "bf16_gradient_rel_l2": bf16}}))
+    return counts
+
+
+def mesh_scene_cfg(dp=1, tp=1):
+    from dreamscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(SCENE_CFG), ["log.exp_name=scene"])
+    cfg.parallelParams.dp, cfg.parallelParams.tp = dp, tp
+    cfg.parallelParams.shard_splats = dp * tp > 1
+    return cfg
+
+
+def mesh_scene_trainer(root, dp, tp, device):
+    """Phase 6's scene (config #4) from the object PLYs under `root`, with
+    the guidance in float32, and the inputs of one stage-1 step."""
+    from dreamscene_tpu_torch.training.scene_trainer import SceneTrainer
+
+    cfg = mesh_scene_cfg(dp, tp)
+    tr = SceneTrainer(cfg, guidance=sd21_guidance(cfg.guidanceParams, device=device,
+                                                  dtype=torch.float32),
+                      exp_root=str(root), device=device, env_density=1.0)
+    for obj_cfg in tr.scene_objects:
+        tr.object_task(obj_cfg)
+    tr.prepare_train_scene()
+    tr.step, tr.iters = 1, cfg.sceneOptimizationParams.iterations
+    c = tr.guidance_opt.C_batch_size
+    cams = tr._stage1_cams(4 * c)
+    inp = tr.step_inputs(cams[:c], "env", False, False, 1.0 / tr.iters)
+    return tr, cams, inp
+
+
+def mesh_scene_rank(rank, world, d):
+    """Phase 13c on one of two ranks (dp 1 x tp 2, shard_splats) sharing
+    cuda:0 over gloo: the stage-1 step the parent took alone, then two
+    stage-1 steps and one stage-3 recon step (one camera on two bands)."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.parallel import collectives as X
+    from dreamscene_tpu_torch.training.scene_trainer import scene_step
+
+    d = Path(d)
+    ref = torch.load(d / "fingerprint.pt", weights_only=False)
+    tr, cams, inp = mesh_scene_trainer(d / "mesh", 1, 2, "cuda:0")
+    assert weight_sum(tr.guidance.mods) == ref["weight_sum"]
+    assert float(inp["args"]["noise"].double().sum()) == ref["noise_sum"]
+    args = inp["args"]
+    out = {"rows": {n: (s.capacity, s.global_capacity)
+                    for n, s in zip(inp["names"] + ["floor", "env"], args["states"])},
+           "total_rows": sum(s.global_capacity or s.capacity for s in args["states"])}
+    res = scene_step(**args)
+    env = args["states"][-1]
+    grads = {k: (X.all_gather_cat(v, tr.mesh.group("tp")) if env.global_capacity else v).cpu()
+             for k, v in res["grads"][-1].items()}
+    out["parity"] = dict(loss=float(res["loss"]), env_grads=grads)
+    del res, args, inp
+    # the timed steps compute the guidance in bf16, as the path does
+    tr.guidance = None
+    torch.cuda.empty_cache()
+    tr.guidance = sd21_guidance(tr.guidance_opt, device="cuda:0")
+    c = tr.guidance_opt.C_batch_size
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    tr.step = 0
+    recs = [mesh_step(lambda i=i: tr.scene_train_step(cams[(i + 1) * c:(i + 2) * c], "env"),
+                      lambda: tr.last_stats["n_rungs"]) for i in range(2)]
+    gt = torch.rand((3, 512, 512), device="cuda:0",
+                    generator=torch.Generator(device="cuda:0").manual_seed(3))
+    recs.append(mesh_step(lambda: tr._run_scene_step(
+        cams[:1], "all", False, True, 1.0, guidance_on=False, gt_images=[gt],
+        optp=tr.cfg.reconSceneOptimizationParams)))
+    out["steps"] = dict(recs=recs, counts=dict(kernels.COUNTS),
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                        flat=None if tr._flat_mesh is None else dict(tr._flat_mesh.shape))
+    out["busy_ms"] = busy_ms(lambda: tr.scene_train_step(cams[:c], "env"))
+    torch.save(out, d / f"out_{rank}.pt")
+
+
+def run_mesh_scene():
+    """Phase 13c: config #4 (phase 6's scene, DS_FLASH_ATTN=1) on two ranks,
+    dp 1 x tp 2 with shard_splats, sharing cuda:0 over gloo. The parent
+    takes one stage-1 step alone and frees the card; each rank takes the
+    same step (held against it: loss rtol 1e-3, the env's gradient within
+    relative L2 1e-3 per group; the guidance in float32 for it, as in
+    phase 13b), two stage-1 steps and a stage-3 recon step (bf16; timed,
+    launch counts), and a profiled stage-1 step. Returns the launches of
+    those three steps, summed over the ranks."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.parallel.launch import run_ranks
+    from dreamscene_tpu_torch.training.scene_trainer import SceneTrainer, scene_step
+
+    d = Path(fresh_dir("mesh_scene"))
+    os.environ["DS_FLASH_ATTN"] = "1"
+    try:
+        writer = SceneTrainer(mesh_scene_cfg(), exp_root=str(d / "single"), device="cuda",
+                              guidance=None, env_density=1.0)
+        write_scene_objects(writer)
+        (d / "mesh" / "scene" / "checkpoints").mkdir(parents=True)
+        for f in writer.ckpt_path.glob("*_final_model.ply"):
+            shutil.copy(f, d / "mesh" / "scene" / "checkpoints" / f.name)
+        del writer
+        tr, cams, inp = mesh_scene_trainer(d / "single", 1, 1, "cuda")
+        weights_gib = weight_gib(tr.guidance.mods)
+        torch.cuda.reset_peak_memory_stats()
+        res = scene_step(**inp["args"])
+        single_peak = torch.cuda.max_memory_allocated() / 2**30
+        ref = dict(loss=float(res["loss"]), env_grads={k: v.cpu()
+                                                       for k, v in res["grads"][-1].items()})
+        torch.save(dict(weight_sum=weight_sum(tr.guidance.mods),
+                        noise_sum=float(inp["args"]["noise"].double().sum())),
+                   d / "fingerprint.pt")
+        tr.guidance = res = None
+        torch.cuda.empty_cache()
+        # the same step in bf16, as the ranks' timed steps run it
+        args = dict(inp["args"], mods=sd21_guidance(tr.guidance_opt).mods)
+        scene_step(**args)                              # warm-up
+        single = mesh_step(lambda: scene_step(**args)["loss"])
+        single["busy_ms"] = busy_ms(lambda: scene_step(**args))
+        del tr, cams, inp, args
+        torch.cuda.empty_cache()
+        est = reckon_peak("scene mesh, float32 step (tp 2, state and band tables halved)",
+                          single_peak, weights_gib, 0.5)
+        t0 = time.perf_counter()
+        run_ranks(mesh_scene_rank, 2, (str(d),), store_dir=str(d), device="cuda:0",
+                  timeout_s=MESH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("DS_FLASH_ATTN", None)
+    outs = [torch.load(d / f"out_{r}.pt", weights_only=False) for r in range(2)]
+    rel = {k: max(rel_l2(o["parity"]["env_grads"][k], g) for o in outs)
+           for k, g in ref["env_grads"].items() if k != "background"}
+    log(f"[mesh] scene stage-1 step, tp 2 shard_splats against the single process: loss "
+        f"{[o['parity']['loss'] for o in outs]} vs {ref['loss']!r}; env gradient relative L2 "
+        f"{json.dumps(rel)}")
+    for o in outs:
+        assert math.isclose(o["parity"]["loss"], ref["loss"], rel_tol=1e-3), (o["parity"], ref)
+        assert all(math.isfinite(r["loss"]) for r in o["steps"]["recs"])
+        # every model whose capacity divides keeps half its rows on each rank
+        assert all(cap is None or 2 * rows == cap for rows, cap in o["rows"].values()), o["rows"]
+    assert all(v <= 1e-3 for v in rel.values()), rel
+    c = 4
+    for o in outs:
+        recs = o["steps"]["recs"]
+        expect = {k: 2 * c + 1 for k in K1_K3}
+        expect.update(k4_expect([r["n_rungs"] for r in recs[:2]], 10, 2))
+        assert o["steps"]["counts"] == expect, (o["steps"]["counts"], expect)
+    per_rank = [{"rank": r, "rows": o["rows"], "step_ms": [x["ms"] for x in o["steps"]["recs"]],
+                 "collective_s": [x["collective_s"] for x in o["steps"]["recs"]],
+                 "gathered_mb": [x["gathered_mb"] for x in o["steps"]["recs"]],
+                 "kernel_span_ms_time_sliced": o["busy_ms"], "peak_gib": o["steps"]["peak_gib"]}
+                for r, o in enumerate(outs)]
+    counts = {k: sum(o["steps"]["counts"][k] for o in outs) for k in kernels.KERNEL_NAMES}
+    log(json.dumps({"mesh_scene_steps": {
+        "label": LABEL, "ranks": per_rank, "ranks_wall_s": wall,
+        "total_rows": outs[0]["total_rows"], "pad_rows": outs[0]["total_rows"] % 2,
+        "single_process": {"step_ms": single["ms"], "device_busy_ms": single["busy_ms"]},
+        "single_process_peak_gib_f32": single_peak, "peak_reckoned_gib_f32": est,
+        "launches_summed": counts, "env_gradient_rel_l2": rel}}))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1667,7 +2227,7 @@ def main():
     small_step_parity(controlnet=True)
     by_path["composition_render"], comp_rows, e = run_composition()
     errs.update({k: max(errs[k], v) for k, v in e.items()})
-    tr, gates, scene_rows, e = run_scene_steps(cn)
+    tr, gates, scene_rows, scene_band_rows, e = run_scene_steps(cn)
     errs.update({k: max(errs[k], v) for k, v in e.items()})
     by_path["scene_steps"] = {k: gates["unset"][k] + gates["set"][k] for k in kernels.KERNEL_NAMES}
     by_path["controlnet_scene_steps"] = {k: gates["controlnet"][k] for k in kernels.KERNEL_NAMES}
@@ -1679,6 +2239,10 @@ def main():
     del guidance
     torch.cuda.empty_cache()
     run_loader()
+    band_rows, e = run_band_kernels()
+    errs.update({k: max(errs[k], v) for k, v in e.items()})
+    by_path["mesh_object_steps"] = run_mesh_objects()
+    by_path["mesh_scene_steps"] = run_mesh_scene()
 
     table = []
     for k in kernels.KERNEL_NAMES:
@@ -1689,7 +2253,10 @@ def main():
         if k in K1_K3:
             scenes = {lab: {kk: rr[k][kk] for kk in ("ms", "plain_ms", "bound_ms", "bound_by")}
                       for lab, rr in (("config #3 5x60K 800^2", comp_rows),
-                                      ("config #4 scene 512^2", scene_rows))}
+                                      ("config #4 scene 512^2", scene_rows),
+                                      ("mesh band 512x256 from row 256, chunk 256", band_rows),
+                                      ("config #4 mesh band 512x256 from row 256, chunk 256",
+                                       scene_band_rows))}
         table.append({"name": k, "route": "cuda", "variant": r.get("variant", "scalar"),
                       "source": src, "replaces": rep,
                       "launches": sum(launches.values()), "launches_by_path": launches,

@@ -9,12 +9,19 @@ pipeline runs (SceneTrainer.train: the scene's objects, then the three
 scene stages), as main.py does. `--env-density` (< 1) scales the env and
 floor init clouds down, for small runs. The trainer runs on the card unless
 `--device cpu` is given.
+
+Under torchrun the runtime comes up first (parallel/distributed.py), as
+main.py's does, and each rank trains on its own device:
+
+    torchrun --nproc-per-node 4 -m dreamscene_tpu_torch --config C.yaml \
+        parallelParams.dp=2 parallelParams.tp=2
 """
 
 import argparse
 import logging
 import sys
 
+from dreamscene_tpu_torch.parallel.distributed import initialize_runtime
 from dreamscene_tpu_torch.utils.config import load_config
 
 
@@ -31,15 +38,17 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*", help="dotlist overrides, e.g. seed=1")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    # the multi-process runtime (a no-op for one process), before any device use
+    device = initialize_runtime(args.device)
     cfg = load_config(args.config, args.overrides, object_mode=args.object)
     if args.object:
         from dreamscene_tpu_torch.training.object_trainer import ObjectTrainer
 
-        ObjectTrainer(cfg, exp_root=args.exp_root, device=args.device).train()
+        ObjectTrainer(cfg, exp_root=args.exp_root, device=device).train()
     else:
         from dreamscene_tpu_torch.training.scene_trainer import SceneTrainer
 
-        SceneTrainer(cfg, exp_root=args.exp_root, device=args.device,
+        SceneTrainer(cfg, exp_root=args.exp_root, device=device,
                      env_density=args.env_density).train()
     return 0
 

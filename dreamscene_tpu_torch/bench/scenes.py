@@ -115,9 +115,12 @@ def indoor_scene(config_path, obj_pts=30_000, seed=0):
     return final_combine_all(states), loader.Stage1_Indoor()[0], 4 * rows // 2
 
 
-def binned_inputs(st, cam, tile_w, tile_h, chunk=512, sh_degree=2, capacity=None):
+def binned_inputs(st, cam, tile_w, tile_h, chunk=512, sh_degree=2, capacity=None,
+                  band=None):
     """Project and bin one view at `capacity` entries (default 4 per
-    splat row); returns everything the kernels take."""
+    splat row); returns everything the kernels take. `band` = (first row,
+    rows): the tile band a rank of the mesh path bins (screen y shifted
+    by the first row after projecting against the whole image)."""
     from dreamscene_tpu_torch.ops import binning
     from dreamscene_tpu_torch.ops.projection import project_gaussians
 
@@ -132,21 +135,25 @@ def binned_inputs(st, cam, tile_w, tile_h, chunk=512, sh_degree=2, capacity=None
             valid_mask=st.aux["active"])
         n = sp.means2d.shape[0]
         capacity = capacity or 4 * n
-        ex = binning.expand_args(sp.means2d, sp.depths, sp.radii, sp.visible,
-                                 cam.width, cam.height, capacity, sp.conics,
+        height, means2d = cam.height, sp.means2d
+        if band is not None:
+            height = band[1]
+            means2d = means2d - means2d.new_tensor([0.0, float(band[0])])
+        ex = binning.expand_args(means2d, sp.depths, sp.radii, sp.visible,
+                                 cam.width, height, capacity, sp.conics,
                                  sp.opacities, None, tile_w, tile_h)
-        b = binning.bin_splats(sp.means2d, sp.depths, sp.radii, sp.visible,
-                               cam.width, cam.height, capacity=capacity,
+        b = binning.bin_splats(means2d, sp.depths, sp.radii, sp.visible,
+                               cam.width, height, capacity=capacity,
                                chunk=chunk, conics=sp.conics,
                                opacities=sp.opacities, tile_w=tile_w, tile_h=tile_h)
-        rec_n = torch.cat([sp.means2d, sp.conics, sp.opacities[:, None], sp.colors,
+        rec_n = torch.cat([means2d, sp.conics, sp.opacities[:, None], sp.colors,
                            sp.depths[:, None], sp.means2d.new_zeros((n, 6))], 1)
         cap_pad = binning.cdiv(capacity, 128) * 128 + chunk
         gid_pad = torch.cat([b.gid_sorted, torch.zeros(cap_pad - capacity, dtype=torch.int32,
                                                         device=dev)])
         records_t = rec_n.index_select(0, gid_pad.long()).t().contiguous()
     tiles_x = binning.cdiv(cam.width, tile_w)
-    n_tiles = tiles_x * binning.cdiv(cam.height, tile_h)
+    n_tiles = tiles_x * binning.cdiv(height, tile_h)
     meta = (b.chunk_tile, b.chunk_s0, b.chunk_lo, b.chunk_hi, b.chunk_first,
             b.n_chunks_used)
     return dict(ex=ex, binned=b, records_t=records_t, meta=meta, n_tiles=n_tiles,

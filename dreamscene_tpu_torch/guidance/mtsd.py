@@ -187,6 +187,28 @@ def specify_gradient_loss(latents, grad):
     return (latents * grad.detach()).sum()
 
 
+def guidance_loss(mods: GuidanceModules, images, depths, flip: bool, as_latent: bool,
+                  vae_eps, noise, ladder, text_emb, guidance_scale: float,
+                  lambda_guidance: float, use_cn: bool = False, phase: str = "fps"):
+    """The guidance term of a training step: flip the renders, VAE-encode
+    the images (the disparities with `as_latent`), score the latents on the
+    ladder (the flipped disparities as the ControlNet's depth hint with
+    `use_cn`) and return sum(latents * sg(CSD gradient)). The encode and
+    the ladder are marked as `<phase>.vae_encode` / `<phase>.ladder`
+    profiler ranges."""
+    images_f, depths_f = horizontal_flip(flip, images, depths)
+    enc_in = depths_f.repeat(1, 3, 1, 1) if as_latent else images_f
+    with torch.profiler.record_function(f"{phase}.vae_encode"):
+        latents = encode_images(mods, enc_in, vae_eps)
+    # depth-ControlNet hint: the flipped disparities, NHWC x 3 channels
+    hint = depths_f.permute(0, 2, 3, 1).repeat(1, 1, 1, 3).detach() if use_cn else None
+    with torch.profiler.record_function(f"{phase}.ladder"):
+        scores = ladder_scores(mods, latents.detach(), noise, ladder, text_emb, cond_image=hint)
+        with torch.no_grad():
+            grad = csd_grad(mods, scores, guidance_scale, lambda_guidance)
+    return specify_gradient_loss(latents, grad)
+
+
 @torch.no_grad()
 def pseudo_gt_images(mods: GuidanceModules, scores, guidance_scale: float):
     """Decoded x0-hat of the first non-zero rung under CFG: the pseudo

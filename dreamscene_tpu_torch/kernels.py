@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -112,11 +113,25 @@ def _stale() -> bool:
 
 def build(force: bool = False, verbose: bool = False) -> float:
     """Compile every csrc/*.cu in parallel and link libdstorch.so.
-    Returns the seconds spent (0.0 when the library was up to date)."""
+    Returns the seconds spent (0.0 when the library was up to date).
+
+    Processes that start together (the ranks of a multi-process run) take
+    an exclusive `flock` on build/kernels/.lock and check staleness again
+    once they hold it: the first builds, the others load its result. The
+    objects have fixed paths, so two builds at once would write the same
+    files."""
     if not force and not _stale():
         return 0.0
-    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not force and not _stale():
+            return 0.0
+        return _compile(verbose)
+
+
+def _compile(verbose: bool) -> float:
+    t0 = time.perf_counter()
     nvcc = nvcc_path()
     sources = sorted(CSRC.glob("*.cu"))
     procs = []

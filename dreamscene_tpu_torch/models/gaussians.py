@@ -43,7 +43,9 @@ class GaussianState:
     (xyz [C,3], features_dc [C,1,3], features_rest [C,K-1,3], scaling
     [C,3] log-scale, rotation [C,4] wxyz, opacity [C,1] logit,
     background [3]); aux: active [C] bool, max_radii2d, xyz_gradient_accum,
-    denom [C] f32."""
+    denom [C] f32. `global_capacity` is set when the state holds one
+    tp shard's rows of a `global_capacity`-row model
+    (parallel/sharded_render.shard_splat_state); C is then the shard's."""
 
     params: dict
     aux: dict
@@ -51,6 +53,7 @@ class GaussianState:
     sh_degree: int = 3
     active_sh_degree: int = 0
     spatial_lr_scale: float = 1.0
+    global_capacity: int | None = None
 
     @property
     def get_scaling(self):

@@ -103,11 +103,17 @@ def render(means3d, scales, quats, opacities, shs, viewmatrix, projmatrix,
            sh_degree: int = 3, scale_modifier: float = 1.0,
            capacity: int | None = None, chunk: int = 512, valid_mask=None,
            colors_precomp=None, cov3d_precomp=None, means2d_probe=None,
-           colors_probe=None, tile_w: int | None = None,
-           tile_h: int | None = None, device: str | torch.device = "cuda") -> dict:
+           colors_probe=None, pixel_offset_y: int = 0, full_height: int | None = None,
+           tile_w: int | None = None, tile_h: int | None = None,
+           device: str | torch.device = "cuda") -> dict:
     """Render N Gaussians to an RGB+depth+alpha image. `device` names
     where the tensors must lie ("cuda" by default; pass "cpu" to run the
-    plain versions): a CUDA request raises when CUDA is missing."""
+    plain versions): a CUDA request raises when CUDA is missing.
+
+    pixel_offset_y / full_height: the tile-band path (parallel/
+    sharded_render) renders the `height` rows starting at row
+    `pixel_offset_y` of a `full_height`-row image: it projects against the
+    full image and shifts screen y before binning."""
     dev = resolve_device(device)
     if means3d.device.type != dev.type:
         raise ValueError(f"inputs lie on {means3d.device}, render asked for {dev}")
@@ -116,7 +122,7 @@ def render(means3d, scales, quats, opacities, shs, viewmatrix, projmatrix,
         capacity = max(4 * n, 2048)
     splats = project_gaussians(
         means3d, scales, quats, opacities, shs, viewmatrix, projmatrix,
-        campos, tanfovx, tanfovy, width, height, sh_degree=sh_degree,
+        campos, tanfovx, tanfovy, width, full_height or height, sh_degree=sh_degree,
         scale_modifier=scale_modifier, colors_precomp=colors_precomp,
         cov3d_precomp=cov3d_precomp, valid_mask=valid_mask)
     means2d = splats.means2d
@@ -127,13 +133,16 @@ def render(means3d, scales, quats, opacities, shs, viewmatrix, projmatrix,
         colors = colors + colors_probe
     splats = splats._replace(means2d=means2d, colors=colors)
     return render_from_splats(splats, width, height, bg, capacity=capacity,
-                              chunk=chunk, tile_w=tile_w, tile_h=tile_h)
+                              chunk=chunk, pixel_offset_y=pixel_offset_y, tile_w=tile_w,
+                              tile_h=tile_h)
 
 
 def render_from_splats(splats, width: int, height: int, bg, capacity: int,
-                       chunk: int = 512, tile_w: int | None = None,
-                       tile_h: int | None = None) -> dict:
-    """Rasterize already-projected splats (probes applied)."""
+                       chunk: int = 512, pixel_offset_y: int = 0,
+                       tile_w: int | None = None, tile_h: int | None = None) -> dict:
+    """Rasterize already-projected splats (probes applied) into a
+    `height`-row image starting at screen row `pixel_offset_y`: binning,
+    K3, K1 and K2 work in the band's own coordinates."""
     n = splats.means2d.shape[0]
     dev = splats.means2d.device
     tile_w, tile_h = resolve_tile(tile_w, tile_h)
@@ -141,6 +150,8 @@ def render_from_splats(splats, width: int, height: int, bg, capacity: int,
     tiles_y = cdiv(height, tile_h)
     n_tiles = tiles_x * tiles_y
     means2d = splats.means2d
+    if pixel_offset_y:
+        means2d = means2d - means2d.new_tensor([0.0, float(pixel_offset_y)])
 
     binned = bin_splats(
         means2d, splats.depths, splats.radii, splats.visible, width, height,

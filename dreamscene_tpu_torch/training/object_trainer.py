@@ -29,9 +29,16 @@ With `mode_args.export_mesh`, `train()` ends by writing `<id>_mesh.ply`
 (models/mesh.py). A depth ControlNet conditions the ladder when the
 guidance has one (`guidance/sd_loader.build_sd_guidance` with
 `guidanceParams.controlnet_model_key`, or `make_tiny_guidance(
-with_controlnet=True)`) and `MTSD.use_controlnet` lets it. Not ported
-(ROADMAP queue A): the multi-device mesh (parallelParams dp*tp > 1
-raises).
+with_controlnet=True)`) and `MTSD.use_controlnet` lets it.
+
+With parallelParams dp * tp > 1 the trainer is one rank of a mesh
+(parallel/): each rank draws every host and tensor sample of the step, as
+a single process would, and `fps_step` renders its cameras' tile bands
+(with shard_splats, from its rows of the state), encodes and scores its
+cameras and all-reduces the gradients, so every rank ends the step with
+the same parameters (or its rows of them). Densify, the importance filter,
+capacity growth and the refine phase run on the whole state on every
+rank; files are written by rank 0 while the others wait.
 """
 
 from __future__ import annotations
@@ -62,7 +69,10 @@ from dreamscene_tpu_torch.models.mesh import export_mesh
 from dreamscene_tpu_torch.models.ply import _parse_ply, load_splat_ply, save_splat_ply
 from dreamscene_tpu_torch.ops.losses import tv_loss
 from dreamscene_tpu_torch.ops.rasterizer import render
-from dreamscene_tpu_torch.rendering import normalized_disparity, object_render, sample_aug
+from dreamscene_tpu_torch.parallel import collectives as X
+from dreamscene_tpu_torch.parallel import distributed as PD
+from dreamscene_tpu_torch.parallel import sharded_render as SR
+from dreamscene_tpu_torch.rendering import object_render, sample_aug
 from dreamscene_tpu_torch.training.capacity import CapacityController
 from dreamscene_tpu_torch.training.filtering import importance_filter
 from dreamscene_tpu_torch.utils.experiment import setup_experiment_logging
@@ -157,48 +167,12 @@ def camera_tensors(cameras, device) -> list[dict]:
                  tanfovx=c.tanfovx, tanfovy=c.tanfovy) for c in cameras]
 
 
-def _render_cameras(params: dict, active, cams: list, aug, shs_noise, scale_noise,
-                    probes, *, width: int, height: int, capacity: int, active_deg: int):
-    """Render every camera with its augmentation; returns stacked images,
-    normalized disparities and alphas, the peak entry counts and the last
-    camera's radii / visibility / mean scale (the densification inputs)."""
-    dev = params["xyz"].device
-    c_batch = len(cams)
-    images, depths, alphas = [], [], []
-    n_entries, n_dropped = [], []
-    for i in range(c_batch):
-        a = [float(x) for x in aug[i]]
-        feats = torch.cat([params["features_dc"], params["features_rest"]], dim=1)
-        shs = torch.cat([feats[:, :1], feats[:, 1:] * (1.0 - a[3])], dim=1)
-        scales = torch.exp(params["scaling"])
-        shs = shs + a[4] * shs_noise[i] * (0.2**0.5) * shs
-        scales = torch.clamp_min(scales + a[5] * scale_noise[i] * (0.2**0.5) * scales / 4, 0.0)
-        q = params["rotation"]
-        out = render(
-            means3d=params["xyz"], scales=scales,
-            quats=q / torch.linalg.norm(q, dim=-1, keepdim=True),
-            opacities=torch.sigmoid(params["opacity"])[:, 0], shs=shs,
-            **cams[i], width=width, height=height,
-            bg=torch.tensor(a[:3], dtype=torch.float32, device=dev),
-            sh_degree=active_deg, capacity=capacity, means2d_probe=probes[i],
-            valid_mask=active, device=dev)
-        disp = normalized_disparity(out["depth"], out["alpha"], cams[i]["tanfovx"])
-        images.append(out["image"])
-        depths.append(disp[None])
-        alphas.append(out["alpha"][None])
-        n_entries.append(out["n_entries"])
-        n_dropped.append(out["n_dropped"])
-    last = dict(radii=out["radii"], visible=out["visibility_filter"],
-                scales_mean=(scales * active[:, None]).sum() / (active.sum() * 3.0))
-    return (torch.stack(images), torch.stack(depths), torch.stack(alphas),
-            torch.stack(n_entries).max(), torch.stack(n_dropped).max(), last)
-
-
 def fps_step(state: GaussianState, mods: mtsd.GuidanceModules, cams: list, aug,
              text_emb, ladder, noise, vae_eps, shs_noise, scale_noise, flip: bool,
              as_latent: bool, lrs: dict, *, width: int, height: int, capacity: int,
              active_deg: int, lambda_tv: float, lambda_scale: float,
-             guidance_scale: float, lambda_guidance: float, use_cn: bool = False) -> dict:
+             guidance_scale: float, lambda_guidance: float, use_cn: bool = False,
+             mesh=None) -> dict:
     """One FPS training step (the JAX package's jitted `_fps_step_fn`).
 
     cams: per-camera dicts of view/proj/campos tensors and tan-fovs;
@@ -208,44 +182,79 @@ def fps_step(state: GaussianState, mods: mtsd.GuidanceModules, cams: list, aug,
     ControlNet with the flipped disparity maps as the depth hint. Returns
     the new params/opt/aux, the loss, the peak
     n_entries/n_dropped over the cameras and the raw gradients. The
-    phases are marked as fps.* profiler ranges."""
+    phases are marked as fps.* profiler ranges.
+
+    With a `mesh` (parallel/), this rank's part of the step. The
+    arguments are the same on every rank (the whole batch); `state` holds
+    this rank's rows when it is a tp shard. The rank at (dp_i, tp_i)
+    renders the tile band tp_i of cameras [dp_i * b, (dp_i + 1) * b)
+    (`make_fps_camera_render`; `capacity` is per band), gathers its dp
+    group's bands into full images, and encodes and scores those cameras,
+    as every rank of its tp group does alike. Without one, the step runs
+    on a 1 x 1 mesh, where every collective is the identity.
+
+    Each term reaches the gradient once: the band gather's backward keeps
+    the rank's own band (parallel/collectives.gather_replicated), the mean
+    scale term is the share of its rows on the dp rank of the last camera,
+    and `tv_loss` divides by the whole batch. The parameter gradients are
+    then summed over the mesh (a tp shard's over "dp"), so every rank takes
+    the same Adam step. The densification inputs are those of the last
+    camera: its probe gradient summed over its bands and broadcast from its
+    dp rank. The loss returned is the mesh's sum, each term counted once."""
+    # one process renders at the rasterizer's chunk, a mesh at the JAX
+    # package's mesh chunk
+    mesh, chunk = (SR.single_mesh(), 512) if mesh is None else (mesh, 256)
     c_batch = len(cams)
+    shard = state.global_capacity is not None
+    mine = SR.rank_cameras(mesh, c_batch)
+    b_local = mine.stop - mine.start
+    rows = slice(None)
+    if shard:
+        rows = slice(mesh.coords["tp"] * state.capacity, (mesh.coords["tp"] + 1) * state.capacity)
+    tp_group, dp_group = mesh.group("tp"), mesh.group("dp")
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
     aux = state.aux
     active = aux["active"]
-    probes = torch.zeros((c_batch, params["xyz"].shape[0], 2), device=state.device,
-                         requires_grad=True)
+    probes = torch.zeros((b_local, state.capacity, 2), device=state.device, requires_grad=True)
+    render_fn = SR.make_fps_camera_render(mesh, width, height, active_deg, capacity, c_batch,
+                                          chunk=chunk, shard_splats=shard)
+    q = params["rotation"]
+    inputs = dict(xyz=params["xyz"],
+                  features=torch.cat([params["features_dc"], params["features_rest"]], dim=1),
+                  scaling=torch.exp(params["scaling"]),
+                  rotation=q / torch.linalg.norm(q, dim=-1, keepdim=True),
+                  opacities=torch.sigmoid(params["opacity"])[:, 0], active=active)
     with torch.profiler.record_function("fps.render"):
-        images, depths, alphas, n_entries, n_dropped, last = _render_cameras(
-            params, active, cams, aug, shs_noise, scale_noise, probes, width=width,
-            height=height, capacity=capacity, active_deg=active_deg)
-    images_f, depths_f, _ = mtsd.horizontal_flip(flip, images, depths, alphas)
-    enc_in = depths_f.repeat(1, 3, 1, 1) if as_latent else images_f
-    with torch.profiler.record_function("fps.vae_encode"):
-        latents = mtsd.encode_images(mods, enc_in, vae_eps)
-    # depth-ControlNet hint: the flipped disparities, NHWC x 3 channels
-    hint = depths_f.permute(0, 2, 3, 1).repeat(1, 1, 1, 3).detach() if use_cn else None
-    with torch.profiler.record_function("fps.ladder"):
-        scores = mtsd.ladder_scores(mods, latents.detach(), noise, ladder, text_emb,
-                                    cond_image=hint)
-        with torch.no_grad():
-            grad = mtsd.csd_grad(mods, scores, guidance_scale, lambda_guidance)
-    loss_g = mtsd.specify_gradient_loss(latents, grad)
-    loss_tv = tv_loss(images) + tv_loss(depths)
-    loss = loss_g + lambda_tv * loss_tv + lambda_scale * last["scales_mean"]
+        out = render_fn(inputs, cams[mine], aug[mine], probes, shs_noise[mine][:, rows],
+                        scale_noise[mine][:, rows])
+        images = X.gather_replicated(out["images"], tp_group, dim=2)
+        depths = X.gather_replicated(out["disps"], tp_group, dim=2)
+    loss_img = (mtsd.guidance_loss(mods, images, depths, flip, as_latent, vae_eps[mine],
+                                   noise[mine], ladder, SR.text_rows(text_emb, c_batch, mine),
+                                   guidance_scale, lambda_guidance, use_cn)
+                + lambda_tv * (tv_loss(images) + tv_loss(depths)) * (b_local / c_batch))
+    loss = loss_img + lambda_scale * out["scale_share"]
     with torch.profiler.record_function("fps.backward"):
         loss.backward()
 
+    with torch.profiler.record_function("fps.allreduce"):
+        grads = SR.reduce_gradients(
+            mesh, {k: (v.grad if v.grad is not None else torch.zeros_like(v))
+                   for k, v in params.items()}, shard)
+        probe_grad = probes.grad[b_local - 1].clone()
+        if not shard:        # a shard's rows already hold every band's part
+            X.all_reduce(probe_grad, tp_group)
+        X.broadcast(probe_grad, mesh.ranks_of("dp")[-1], dp_group)
+        report = loss_img.detach() if mesh.coords["tp"] == 0 else torch.zeros_like(loss_img)
+        report = X.all_reduce(report + lambda_scale * out["scale_share"].detach(),
+                              mesh.world_group)
     with torch.profiler.record_function("fps.adam"):
-        grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
-                 for k, v in params.items()}
         new_params, new_opt = adam_update(state.params, grads, state.opt, active, lrs)
-        new_aux = D.update_max_radii(aux, last["radii"], last["visible"])
-        new_aux = D.add_densification_stats(new_aux, probes.grad[c_batch - 1],
-                                            last["visible"])
-    return dict(params=new_params, opt=new_opt, aux=new_aux, loss=loss.detach(),
-                n_entries=n_entries, n_dropped=n_dropped, grads=grads,
-                probe_grad=probes.grad[c_batch - 1])
+        new_aux = D.update_max_radii(aux, out["radii"], out["visible"])
+        new_aux = D.add_densification_stats(new_aux, probe_grad, out["visible"])
+    return dict(params=new_params, opt=new_opt, aux=new_aux, loss=report,
+                n_entries=out["n_entries"], n_dropped=out["n_dropped"], grads=grads,
+                probe_grad=probe_grad)
 
 
 def recon_step(state: GaussianState, cam: dict, gt_image, lrs: dict, *, width: int,
@@ -301,7 +310,17 @@ class ObjectTrainer:
         self.vis_path = self.exp_path / "vis"
         self.ckpt_path.mkdir(parents=True, exist_ok=True)
         self.vis_path.mkdir(parents=True, exist_ok=True)
-        setup_experiment_logging(self.exp_path, cfg)
+        # multi-rank mesh (parallelParams: dp cameras x tp tile bands,
+        # optionally splat-sharded); None = single process
+        par = getattr(cfg, "parallelParams", None)
+        self.mesh = None
+        self.shard_splats = False
+        if par is not None and par.dp * par.tp > 1:
+            self.mesh = SR.make_mesh(par.dp, par.tp)
+            self.shard_splats = bool(par.shard_splats)
+        self.rank0 = PD.rank() == 0
+        if self.rank0:
+            setup_experiment_logging(self.exp_path, cfg)
 
         self.rng = np.random.default_rng(cfg.seed)
         self.cameras_extent = self.pose_args.default_radius
@@ -309,24 +328,41 @@ class ObjectTrainer:
         self.rec_count = 0
         self.guidance = guidance
         self.last_stats: dict = {}
-        par = getattr(cfg, "parallelParams", None)
-        if par is not None and par.dp * par.tp > 1:
-            raise NotImplementedError(
-                "multi-device training (parallelParams dp*tp > 1) is not ported "
-                "yet: ROADMAP queue A, multi-GPU parallel/")
         self.cap_ctrl = CapacityController()
 
         if state is not None:
             self.state = state
         else:
-            pts, cols, sls = init_object_points(
+            # rank 0 makes (and caches) the init cloud; the others take its
+            # arrays (the cached PLY holds uint8 colours)
+            pts, cols, sls = PD.from_rank0(lambda: init_object_points(
                 self.obj.init_guided, self.obj.init_prompt, str(self.exp_path),
                 num_pts=self.obj.num_pts, radius=self.obj.radius,
-                use_pointe_rgb=self.obj.use_pointe_rgb, seed=cfg.seed)
+                use_pointe_rgb=self.obj.use_pointe_rgb, seed=cfg.seed))
             cap = min(max(int(pts.shape[0] * 4), 1 << 14), self.optim.max_point_number)
             self.state = create_from_points(pts, cols, sh_degree=self.obj.sh_degree,
                                             capacity=cap, spatial_lr_scale=sls,
                                             device=self.device)
+
+    def _rank0_only(self, fn):
+        """fn() on rank 0 alone (files, videos); the others wait."""
+        if self.rank0:
+            fn()
+        if self.mesh is not None:
+            PD.barrier()
+
+    def _shard_state(self, state):
+        """This rank's rows of `state` with shard_splats (no-op when it is
+        sharded already, or whole by design)."""
+        if self.mesh is None or not self.shard_splats:
+            return state
+        return SR.shard_splat_state(self.mesh, state, logger)
+
+    def _whole_state(self, state):
+        """Every row of `state` on every rank (densify, filter, refine, files)."""
+        if self.mesh is None:
+            return state
+        return SR.gather_splat_state(self.mesh, state)
 
     def prepare_train(self):
         # controlnet_model_key is read only by build_sd_guidance, as in JAX
@@ -353,9 +389,11 @@ class ObjectTrainer:
         self.step += 1
         optim = self.optim
         iters = optim.iterations
+        self.state = self._shard_state(self.state)
         if self.step % 500 == 0:
             self.state = self.state.one_up_sh_degree()
         st = self.state
+        n_rows = st.global_capacity or st.capacity
 
         if not optim.use_progressive:
             if (self.step >= optim.progressive_view_iter
@@ -381,7 +419,9 @@ class ObjectTrainer:
         lat_shape = g.latent_shape(c_batch, h, w)
         noise = g.next_noise(lat_shape)
         lrs = group_lrs(optim, st.spatial_lr_scale, self.step)
-        self._n_band = max(st.capacity, 4096)
+        # entry capacity is PER TILE BAND: a band bins ~1/n_tp of the entries
+        n_tp = self.mesh.shape["tp"] if self.mesh is not None else 1
+        self._n_band = max(n_rows // n_tp, 4096)
         capacity = self.cap_ctrl.capacity(self._n_band)
         aug = self._aug_rows(c_batch)
         # JAX's order on the guidance's generator: ladder, ControlNet gate, flip
@@ -392,13 +432,13 @@ class ObjectTrainer:
             state=st, mods=g.mods, cams=camera_tensors(cameras, self.device), aug=aug,
             text_emb=text_emb, ladder=ladder, noise=noise,
             vae_eps=g.next_normal(lat_shape),
-            shs_noise=g.next_normal((c_batch, st.capacity, k, 3)),
-            scale_noise=g.next_normal((c_batch, st.capacity, 3)),
+            shs_noise=g.next_normal((c_batch, n_rows, k, 3)),
+            scale_noise=g.next_normal((c_batch, n_rows, 3)),
             flip=flip, as_latent=as_latent, lrs=lrs, width=w, height=h,
             capacity=capacity, active_deg=st.active_sh_degree,
             lambda_tv=optim.lambda_tv, lambda_scale=optim.lambda_scale,
             guidance_scale=self.guidance_opt.guidance_scale,
-            lambda_guidance=self.guidance_opt.lambda_guidance, use_cn=use_cn)
+            lambda_guidance=self.guidance_opt.lambda_guidance, use_cn=use_cn, mesh=self.mesh)
 
     def train_step(self) -> float:
         inputs = self.step_inputs()
@@ -418,6 +458,8 @@ class ObjectTrainer:
         if self.step < optim.densify_until_iter:
             if (self.step >= optim.densify_from_iter
                     and self.step % optim.densification_interval == 0):
+                # the same host decision on every rank, on the whole state
+                self.state = self._whole_state(self.state)
                 n0 = num_active(self.state)
                 self._densify(optim, 20 if self.step > optim.opacity_reset_interval else None)
                 n1 = num_active(self.state)
@@ -429,6 +471,7 @@ class ObjectTrainer:
                 self.state = D.reset_opacity(self.state)
 
         if self.step == 1500:
+            self.state = self._whole_state(self.state)
             self.gaussian_filtering(0.3)
 
         # no try/except: a failing kernel in the viz must not be hidden
@@ -450,7 +493,10 @@ class ObjectTrainer:
         """Per-interval guidance debug grid (reference:
         multitime_sd_utils.py:291-337)."""
         g = self.guidance
-        out = object_render(self.state, camera, bg_color=self._bg_color(), test=True)
+        # every rank renders and scores (the guidance's generators advance
+        # alike on every rank); rank 0 writes the file
+        out = object_render(self._whole_state(self.state), camera, bg_color=self._bg_color(),
+                            test=True)
         images = out["image"][None]
         latents = mtsd.encode_images(
             g.mods, images, g.next_normal(g.latent_shape(1, *images.shape[-2:])))
@@ -461,8 +507,8 @@ class ObjectTrainer:
         grad = mtsd.csd_grad(g.mods, scores, self.guidance_opt.guidance_scale)
         rows = mtsd.guidance_viz_grid(g.mods, images, out["depth"], out["alpha"], latents,
                                       grad, scores, self.guidance_opt.guidance_scale)
-        save_image_grid(str(self.vis_path / f"{self.id}_iter_{self.step}_vd_{'_'.join(vds)}.jpg"),
-                        rows)
+        self._rank0_only(lambda: save_image_grid(
+            str(self.vis_path / f"{self.id}_iter_{self.step}_vd_{'_'.join(vds)}.jpg"), rows))
 
     def _mode_arg(self, name, default):
         ma = self.cfg.mode_args or {}
@@ -491,6 +537,9 @@ class ObjectTrainer:
         g = self.guidance
         g.stage_range = (140, 200)
         g.jump_range = (75, 150)
+        # on a mesh every rank refines the whole state alike (the JAX
+        # package runs this phase unsharded)
+        self.state = self._whole_state(self.state)
         # fresh optimizer step count (the reference re-runs training_setup)
         self.state = dataclasses.replace(
             self.state, opt=AdamState(0, self.state.opt.mu, self.state.opt.nu))
@@ -534,9 +583,10 @@ class ObjectTrainer:
                     with torch.no_grad():
                         out = object_render(self.state, cams[i], bg_color=self._bg_color(),
                                             test=True)
-                    save_image_grid(str(self.vis_path / f"recon_{self.rec_count}.jpg"),
-                                    [torch.clamp(out["image"], 0, 1).cpu().numpy(),
-                                     self.gt_images[i].cpu().numpy()])
+                    grid = [torch.clamp(out["image"], 0, 1).cpu().numpy(),
+                            self.gt_images[i].cpu().numpy()]
+                    self._rank0_only(lambda: save_image_grid(
+                        str(self.vis_path / f"recon_{self.rec_count}.jpg"), grid))
                 if self.rec_count < densify_until:
                     if self.rec_count % optim.densification_interval == 0:
                         self._densify(optim, 20 if self.rec_count > optim.opacity_reset_interval
@@ -549,10 +599,15 @@ class ObjectTrainer:
 
     @torch.no_grad()
     def video_inference(self, tag: str):
-        """Orbit rgb + depth videos (reference object_trainer.py:81-115)."""
+        """Orbit rgb + depth videos (reference object_trainer.py:81-115),
+        rendered and written by rank 0."""
+        state = self._whole_state(self.state)
+        self._rank0_only(lambda: self._write_videos(state, tag))
+
+    def _write_videos(self, state, tag: str):
         frames, depths, alphas = [], [], []
         for cam in S.load_clip_cam(self.pose_args):
-            out = object_render(self.state, cam, bg_color=(1, 1, 1), test=True)
+            out = object_render(state, cam, bg_color=(1, 1, 1), test=True)
             img = torch.clamp(out["image"], 0, 1).cpu().numpy()
             frames.append((np.transpose(img, (1, 2, 0)) * 255).astype(np.uint8))
             # un-premultiply, as the JAX package does with the disparity
@@ -571,7 +626,8 @@ class ObjectTrainer:
 
     def save_model(self, tag):
         path = self.ckpt_path / f"{self.id}_{tag}_model.ply"
-        save_splat_ply(str(path), self.state)
+        state = self._whole_state(self.state)
+        self._rank0_only(lambda: save_splat_ply(str(path), state))
         logger.info("saved %s", path)
 
     def _resume_intermediate(self):
@@ -615,7 +671,7 @@ class ObjectTrainer:
         if self._mode_arg("export_mesh", False):
             # a coloured mesh out of the trained splats (marching tetrahedra)
             path = str(self.ckpt_path / f"{self.id}_mesh.ply")
-            info = export_mesh(self.state, path,
-                               resolution=int(self._mode_arg("mesh_resolution", 128)),
-                               thresh=float(self._mode_arg("mesh_thresh", 1.0)))
-            logger.info("mesh export %s: %s", path, info)
+            state = self._whole_state(self.state)
+            self._rank0_only(lambda: logger.info("mesh export %s: %s", path, export_mesh(
+                state, path, resolution=int(self._mode_arg("mesh_resolution", 128)),
+                thresh=float(self._mode_arg("mesh_thresh", 1.0)))))

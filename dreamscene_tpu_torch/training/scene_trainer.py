@@ -30,8 +30,17 @@ Checkpoints (`scene_<n>_stage.ckpt.npz`) hold the env and floor in the
 JAX package's leaf order, so either package resumes the other's.
 
 A depth ControlNet conditions the stage-1/2 ladders when the guidance
-has one and `MTSD.use_controlnet` lets it. Not ported (ROADMAP queue A):
-the multi-device mesh (parallelParams dp*tp > 1 raises).
+has one and `MTSD.use_controlnet` lets it.
+
+With parallelParams dp * tp > 1 the trainer is one rank of a mesh
+(parallel/), as ObjectTrainer is: `scene_step` renders this rank's
+cameras' tile bands of the concatenated models, with shard_splats each
+model's state is kept as this rank's tp rows and the concatenated axis,
+padded with inactive rows to a multiple of n_tp, is projected in shards.
+A step whose C_batch does not split over dp (the stage-3 recon steps,
+C_batch 1) folds the whole mesh into one group of dp * tp tile bands.
+Densify, checkpoints, pseudo-GT banks and videos see the whole models;
+files are written by rank 0.
 """
 
 from __future__ import annotations
@@ -66,9 +75,12 @@ from dreamscene_tpu_torch.models.scene import (
     final_combine_all,
     place_object,
 )
+from dreamscene_tpu_torch.ops import binning
 from dreamscene_tpu_torch.ops.losses import tv_loss
-from dreamscene_tpu_torch.ops.rasterizer import render
-from dreamscene_tpu_torch.rendering import concat_states, normalized_disparity, scene_render
+from dreamscene_tpu_torch.parallel import collectives as X
+from dreamscene_tpu_torch.parallel import distributed as PD
+from dreamscene_tpu_torch.parallel import sharded_render as SR
+from dreamscene_tpu_torch.rendering import concat_states, scene_render
 from dreamscene_tpu_torch.training.capacity import CapacityController
 from dreamscene_tpu_torch.training.filtering import importance_filter
 from dreamscene_tpu_torch.training.object_trainer import (
@@ -118,7 +130,8 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
                lrs_list: list, gt_images=None, *, width: int, height: int, capacity: int,
                guidance_on: bool, lambda_tv: float, lambda_tv_depth: float,
                lambda_scale: float, guidance_scale: float, lambda_guidance: float,
-               use_cn: bool = False) -> dict:
+               use_cn: bool = False, mesh=None, state_mesh=None,
+               shard_splats: bool = False) -> dict:
     """One scene step over the models `states` (objects..., floor, env).
 
     trainable: one bool per model; cams: per-camera dicts of view/proj/
@@ -129,82 +142,139 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
     params/opt/aux (the input's where not trainable), the loss, the peak
     n_entries / n_dropped over the cameras, the trainable models' raw
     gradients (None elsewhere) and the last camera's probe gradient. The
-    phases are marked as scene.* profiler ranges."""
+    phases are marked as scene.* profiler ranges.
+
+    With a `mesh` (parallel/), this rank's part of the step: the
+    arguments are the whole batch on every rank; states sharded over
+    `state_mesh` (default `mesh`) hold its rows. Cameras go over "dp" and
+    tile bands over "tp" (`capacity` is per band). A model sharded over
+    `state_mesh` is all-gathered into whole rows first (the gather's
+    backward hands each rank its rows' gradient). The models are
+    concatenated (objects..., floor, env) and, with `shard_splats`, padded
+    with inactive rows to a multiple of n_tp, each rank projecting its
+    slice of that axis (`make_fps_camera_render` with zero augmentation is
+    the plain render). Each loss term is counted once: the band gather
+    keeps each rank's own band, the image terms divide by the whole batch,
+    the mean scale term is the mesh's first rank's. A model's gradient
+    sums over the mesh (a shard's over "dp"); the last camera's probe
+    gradient, radii and visibility are gathered whole and sliced per
+    model. Without a mesh the step runs on a 1 x 1 mesh, where every
+    collective is the identity."""
+    # one process renders at the rasterizer's chunk, a mesh at the JAX
+    # package's mesh chunk
+    if mesh is None:
+        mesh, state_mesh, shard_splats, chunk = SR.single_mesh(), None, False, 512
+    else:
+        chunk = 256
+    state_mesh = state_mesh or mesh
     c_batch = len(cams)
     dev = states[0].device
+    mine = SR.rank_cameras(mesh, c_batch)
+    b_local = mine.stop - mine.start
+    tp_group, dp_group = mesh.group("tp"), mesh.group("dp")
+    s_tp = state_mesh.group("tp")
     params_list = [{k: v.detach().requires_grad_(tr) for k, v in s.params.items()}
                    for s, tr in zip(states, trainable)]
-    actives = [s.aux["active"] for s in states]
-    capacities = [s.capacity for s in states]
+    whole = []
+    for s, p, tr in zip(states, params_list, trainable):
+        if s.global_capacity is None:
+            whole.append(dataclasses.replace(s, params=p))
+            continue
+        gather = X.all_gather if tr else X.all_gather_cat
+        wp = {k: (v if k in SR.REPLICATED_FIELDS else gather(v, s_tp)) for k, v in p.items()}
+        whole.append(dataclasses.replace(
+            s, params=wp, aux={"active": X.all_gather_cat(s.aux["active"], s_tp)},
+            global_capacity=None))
     sh_degree = min(s.active_sh_degree for s in states)
-    probes = torch.zeros((c_batch, sum(capacities), 2), device=dev, requires_grad=True)
 
     with torch.profiler.record_function("scene.render"):
-        fields, _ = concat_states([dataclasses.replace(s, params=p)
-                                   for s, p in zip(states, params_list)])
-        images, depths, alphas, n_entries, n_dropped = [], [], [], [], []
-        for i in range(c_batch):
-            out = render(**fields, **cams[i], width=width, height=height,
-                         bg=torch.tensor([float(x) for x in bg_rows[i]], dtype=torch.float32,
-                                         device=dev),
-                         sh_degree=sh_degree, capacity=capacity, means2d_probe=probes[i],
-                         device=dev)
-            disp = normalized_disparity(out["depth"], out["alpha"], cams[i]["tanfovx"])
-            images.append(out["image"])
-            depths.append(disp[None])
-            alphas.append(out["alpha"][None])
-            n_entries.append(out["n_entries"])
-            n_dropped.append(out["n_dropped"])
-        images, depths, alphas = torch.stack(images), torch.stack(depths), torch.stack(alphas)
+        fields, offsets = concat_states(whole)
+        total_c = int(offsets[-1])
+        n_tp = mesh.shape["tp"]
+        lo, hi = 0, total_c
+        if shard_splats:
+            pad = (-total_c) % n_tp
+            if pad:
+                fields = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+                          for k, v in fields.items()}
+            rows = (total_c + pad) // n_tp
+            lo, hi = mesh.coords["tp"] * rows, (mesh.coords["tp"] + 1) * rows
+            fields = {k: v[lo:hi] for k, v in fields.items()}
+        inputs = dict(xyz=fields["means3d"], features=fields["shs"], scaling=fields["scales"],
+                      rotation=fields["quats"], opacities=fields["opacities"],
+                      active=fields["valid_mask"])
+        probes = torch.zeros((b_local, hi - lo, 2), device=dev, requires_grad=True)
+        render_fn = SR.make_fps_camera_render(mesh, width, height, sh_degree, capacity,
+                                              c_batch, chunk=chunk, shard_splats=shard_splats)
+        aug = [list(bg) + [0.0, 0.0, 0.0] for bg in bg_rows[mine]]
+        out = render_fn(inputs, cams[mine], aug, probes)
+        images = X.gather_replicated(out["images"], tp_group, dim=2)
+        depths = X.gather_replicated(out["disps"], tp_group, dim=2)
 
+    share = b_local / c_batch
+    scale_term = 0.0
     if guidance_on:
-        images_f, depths_f, _ = mtsd.horizontal_flip(flip, images, depths, alphas)
-        enc_in = depths_f.repeat(1, 3, 1, 1) if as_latent else images_f
-        with torch.profiler.record_function("scene.vae_encode"):
-            latents = mtsd.encode_images(mods, enc_in, vae_eps)
-        # depth-ControlNet hint: the flipped disparities, NHWC x 3 channels
-        hint = depths_f.permute(0, 2, 3, 1).repeat(1, 1, 1, 3).detach() if use_cn else None
-        with torch.profiler.record_function("scene.ladder"):
-            scores = mtsd.ladder_scores(mods, latents.detach(), noise, ladder, text_emb,
-                                        cond_image=hint)
-            with torch.no_grad():
-                grad = mtsd.csd_grad(mods, scores, guidance_scale, lambda_guidance)
-        loss = mtsd.specify_gradient_loss(latents, grad)
-        loss = loss + lambda_tv * tv_loss(images) + lambda_tv_depth * tv_loss(depths)
-        # masked mean scale over the trainable models
-        s_sum, s_cnt = 0.0, 0.0
-        for p, act, tr in zip(params_list, actives, trainable):
-            if tr:
-                s_sum = s_sum + (torch.exp(p["scaling"]) * act[:, None]).sum()
-                s_cnt = s_cnt + act.sum() * 3.0
-        loss = loss + lambda_scale * s_sum / torch.clamp_min(torch.as_tensor(s_cnt), 1.0)
+        loss_img = (mtsd.guidance_loss(mods, images, depths, flip, as_latent, vae_eps[mine],
+                                       noise[mine], ladder, SR.text_rows(text_emb, c_batch, mine),
+                                       guidance_scale, lambda_guidance, use_cn, "scene")
+                    + lambda_tv * tv_loss(images) * share
+                    + lambda_tv_depth * tv_loss(depths) * share)
+        if PD.rank() == mesh.ranks[0]:
+            # masked mean scale over the trainable models, counted on one rank
+            s_sum, s_cnt = 0.0, 0.0
+            for st, tr in zip(whole, trainable):
+                if tr:
+                    s_sum = s_sum + (torch.exp(st.params["scaling"])
+                                     * st.aux["active"][:, None]).sum()
+                    s_cnt = s_cnt + st.aux["active"].sum() * 3.0
+            scale_term = lambda_scale * s_sum / torch.clamp_min(torch.as_tensor(s_cnt), 1.0)
     else:
-        loss = 100.0 * torch.mean((images - gt_images) ** 2)
+        loss_img = 100.0 * torch.mean((images - gt_images[mine]) ** 2) * share
     with torch.profiler.record_function("scene.backward"):
-        loss.backward()
+        (loss_img + scale_term).backward()
+
+    with torch.profiler.record_function("scene.allreduce"):
+        last_probe = probes.grad[b_local - 1].clone()
+        if not shard_splats:        # a shard's rows already hold every band's part
+            X.all_reduce(last_probe, tp_group)
+        X.broadcast(last_probe, mesh.ranks_of("dp")[-1], dp_group)
+        radii, visible = out["radii"], out["visible"]
+        if shard_splats:
+            last_probe, radii, visible = (X.all_gather_cat(t, tp_group)[:total_c]
+                                          for t in (last_probe, radii, visible))
+        report = loss_img.detach() if mesh.coords["tp"] == 0 else torch.zeros_like(loss_img)
+        report = X.all_reduce(report + torch.as_tensor(scale_term, device=dev).detach(),
+                              mesh.world_group)
+        grads = []
+        for s, p, tr in zip(states, params_list, trainable):
+            g = None
+            if tr:
+                g = SR.reduce_gradients(
+                    state_mesh, {f: (v.grad if v.grad is not None else torch.zeros_like(v))
+                                 for f, v in p.items()}, s.global_capacity is not None)
+            grads.append(g)
 
     with torch.profiler.record_function("scene.adam"):
-        last_probe = probes.grad[c_batch - 1]
-        new_params, new_opt, new_aux, grads = [], [], [], []
-        offset = 0
-        for s, p, tr, lrs, cap in zip(states, params_list, trainable, lrs_list, capacities):
-            if tr:
-                g = {f: (v.grad if v.grad is not None else torch.zeros_like(v))
-                     for f, v in p.items()}
-                np_, no_ = adam_update(s.params, g, s.opt, s.aux["active"], lrs)
-                seg_vis = out["visibility_filter"][offset:offset + cap]
-                na_ = D.update_max_radii(s.aux, out["radii"][offset:offset + cap], seg_vis)
-                na_ = D.add_densification_stats(na_, last_probe[offset:offset + cap], seg_vis)
-            else:
-                g, np_, no_, na_ = None, s.params, s.opt, s.aux
-            grads.append(g)
+        new_params, new_opt, new_aux = [], [], []
+        for m, (s, g, lrs) in enumerate(zip(states, grads, lrs_list)):
+            if g is None:
+                new_params.append(s.params)
+                new_opt.append(s.opt)
+                new_aux.append(s.aux)
+                continue
+            seg = slice(int(offsets[m]), int(offsets[m + 1]))
+            if s.global_capacity is not None:
+                first = int(offsets[m]) + state_mesh.coords["tp"] * s.capacity
+                seg = slice(first, first + s.capacity)
+            np_, no_ = adam_update(s.params, g, s.opt, s.aux["active"], lrs)
+            na_ = D.update_max_radii(s.aux, radii[seg], visible[seg])
+            na_ = D.add_densification_stats(na_, last_probe[seg], visible[seg])
             new_params.append(np_)
             new_opt.append(no_)
             new_aux.append(na_)
-            offset += cap
-    return dict(params=new_params, opt=new_opt, aux=new_aux, loss=loss.detach(),
-                n_entries=torch.stack(n_entries).max(), n_dropped=torch.stack(n_dropped).max(),
-                grads=grads, probe_grad=last_probe)
+    return dict(params=new_params, opt=new_opt, aux=new_aux, loss=report,
+                n_entries=out["n_entries"], n_dropped=out["n_dropped"], grads=grads,
+                probe_grad=last_probe)
 
 
 def _ckpt_leaves(st: GaussianState) -> list:
@@ -250,7 +320,18 @@ class SceneTrainer:
         self.vis_path = self.exp_path / "vis"
         for p in (self.ckpt_path, self.scene_ckpt_path, self.vis_path):
             p.mkdir(parents=True, exist_ok=True)
-        setup_experiment_logging(self.exp_path, cfg)
+        # multi-rank mesh (parallelParams, as in ObjectTrainer: dp cameras x
+        # tp tile bands; shard_splats also splits each model's rows)
+        par = getattr(cfg, "parallelParams", None)
+        self.mesh = None
+        self.shard_splats = False
+        self._flat_mesh = None
+        if par is not None and par.dp * par.tp > 1:
+            self.mesh = SR.make_mesh(par.dp, par.tp)
+            self.shard_splats = bool(par.shard_splats)
+        self.rank0 = PD.rank() == 0
+        if self.rank0:
+            setup_experiment_logging(self.exp_path, cfg)
 
         self.rng = np.random.default_rng(cfg.seed)
         self.cameras_extent = self.pose_args.default_radius
@@ -268,11 +349,37 @@ class SceneTrainer:
         self.scene_objects = sc.get("objects") or []
         self.scene_cfg = sc.get("scene") or {}
         self.cam_pose_method = self.scene_cfg.get("cam_pose_method", "indoor")
-        par = getattr(cfg, "parallelParams", None)
-        if par is not None and par.dp * par.tp > 1:
-            raise NotImplementedError(
-                "multi-device training (parallelParams dp*tp > 1) is not ported "
-                "yet: ROADMAP queue A, multi-GPU parallel/")
+
+    def _rank0_only(self, fn):
+        """fn() on rank 0 alone (files); the others wait."""
+        if self.rank0:
+            fn()
+        if self.mesh is not None:
+            PD.barrier()
+
+    def _whole(self, state):
+        """Every row of a model on every rank."""
+        return state if self.mesh is None else SR.gather_splat_state(self.mesh, state)
+
+    def _step_mesh(self, c_batch: int, height: int):
+        """The mesh a step of c_batch cameras runs on: the trainer's, or,
+        when c_batch does not split over dp, one group of dp * tp tile
+        bands over the same ranks; None (the single-device step on every
+        rank) when the height has no such tile-aligned bands."""
+        if c_batch % self.mesh.shape["dp"] == 0:
+            return self.mesh
+        n_flat = self.mesh.size
+        if height % n_flat == 0 and (height // n_flat) % binning.DEFAULT_TILE_H == 0:
+            if self._flat_mesh is None:
+                logger.info("scene step c_batch=%d %% dp=%d != 0 — folding the mesh to "
+                            "(1x%d) tile bands for this step", c_batch,
+                            self.mesh.shape["dp"], n_flat)
+                self._flat_mesh = SR.make_mesh(1, n_flat, ranks=self.mesh.ranks)
+            return self._flat_mesh
+        logger.info("scene step c_batch=%d %% dp=%d != 0 and height %d has no %d "
+                    "tile-aligned bands — this step runs the single-device path",
+                    c_batch, self.mesh.shape["dp"], height, n_flat)
+        return None
 
     # ------------------------------------------------------------------
     def object_task(self, obj_cfg: dict) -> GaussianState:
@@ -295,17 +402,21 @@ class SceneTrainer:
         `<id>_final_model_compressed.ply` (reference scene_gaussian.py:
         222-238); objects already compressed are skipped."""
         prune_percent = float(self.scene_cfg.get("compress_prune_percent", 0.5))
-        for obj in composition:
+        todo = [obj for obj in composition
+                if (self.ckpt_path / f"{obj['id']}_final_model.ply").exists()
+                and not (self.ckpt_path / f"{obj['id']}_final_model_compressed.ply").exists()]
+        if self.mesh is not None:
+            PD.barrier()         # every rank has decided before rank 0 writes
+        for obj in todo:
             ply = self.ckpt_path / f"{obj['id']}_final_model.ply"
             cply = self.ckpt_path / f"{obj['id']}_final_model_compressed.ply"
-            if cply.exists() or not ply.exists():
-                continue
             st = load_splat_ply(str(ply), sh_degree=None, device=self.device)
             n0 = num_active(st)
+            # every rank filters (self.rng advances alike); rank 0 writes
             st = importance_filter(st, self.rng, self.pose_args, bg_color=self.bg_color,
                                    prune_percent=prune_percent,
                                    n_views=int(self.scene_cfg.get("compress_n_views", 48)))
-            save_splat_ply(str(cply), st)
+            self._rank0_only(lambda: save_splat_ply(str(cply), st))
             logger.info("compress_objects: %s %d -> %d points", obj["id"], n0, num_active(st))
 
     def prepare_train_scene(self):
@@ -367,8 +478,9 @@ class SceneTrainer:
             floor_pts, floor_cols, sh_degree=deg,
             capacity=min(int(floor_pts.shape[0] * 1.5), max_pts // 3), device=self.device)
 
-        export_layout(self.scene.scene_box, self.scene.objects_args,
-                      str(self.exp_path / "layout.jpg"), seed=self.cfg.seed)
+        self._rank0_only(lambda: export_layout(self.scene.scene_box, self.scene.objects_args,
+                                               str(self.exp_path / "layout.jpg"),
+                                               seed=self.cfg.seed))
         self.embeddings = calc_scene_text_embeddings(
             self.guidance, sc.get("scene_text", ""), sc.get("negative_text", ""),
             self.cam_pose_method, self.cfg.sceneOptimizationParams)
@@ -381,13 +493,14 @@ class SceneTrainer:
     def save_ckpt(self):
         path = self.scene_ckpt_path / f"scene_{self.scene.stage_n}_stage.ckpt.npz"
         flat = {}
-        for name, st in (("env", self.scene.env), ("floor", self.scene.floor)):
+        for name, st in (("env", self._whole(self.scene.env)),
+                         ("floor", self._whole(self.scene.floor))):
             for i, leaf in enumerate(_ckpt_leaves(st)):
                 flat[f"{name}_{i}"] = (leaf.cpu().numpy() if isinstance(leaf, torch.Tensor)
                                        else leaf)
             flat[f"{name}_meta"] = np.asarray([st.sh_degree, st.active_sh_degree], np.int32)
         flat["stage_n"] = np.asarray(self.scene.stage_n)
-        np.savez_compressed(path, **flat)
+        self._rank0_only(lambda: np.savez_compressed(path, **flat))
         logger.info("saved scene ckpt %s", path)
 
     def _maybe_resume(self):
@@ -429,10 +542,17 @@ class SceneTrainer:
         """Host side of one scene step, in the JAX trainer's draw order
         (`_run_scene_step`): as_latent, ladder, noise, learning rates,
         per-camera background augmentation, VAE eps, flip. Returns the
-        arguments of `scene_step` and the visible model names."""
+        arguments of `scene_step` and the visible model names. On a mesh
+        the arguments name the step's mesh (`_step_mesh`) and the entry
+        capacity of one tile band."""
         optp = optp or self.cfg.sceneOptimizationParams
         names = self._visible_names(only_env)
         states = self._states(names)
+        if self.mesh is not None and self.shard_splats:
+            # persist each model as this rank's tp rows (no-op once sharded)
+            states = [SR.shard_splat_state(self.mesh, st, logger) for st in states]
+            self._write_back_states(names, states)
+        n_rows = [st.global_capacity or st.capacity for st in states]
         trainable = tuple([scene_optim] * len(names)
                           + [key_gs in ("floor", "all"), key_gs in ("env", "all")])
         c_batch = len(cameras)
@@ -460,9 +580,19 @@ class SceneTrainer:
         use_cn = guidance_on and g.use_controlnet(self.step, self.cfg.sceneOptimizationParams)
         vae_eps = g.next_normal(lat_shape)
         flip = g.should_flip() if guidance_on else False
-        capacity = int(self.cap_ctrl.mult * sum(s.capacity for s in states)) // 2
+        capacity = int(self.cap_ctrl.mult * sum(n_rows)) // 2
         gt = (torch.zeros((c_batch, 3, h, w), device=self.device) if gt_images is None
               else torch.stack(list(gt_images)))
+        mesh_args = {}
+        if self.mesh is not None:
+            step_mesh = self._step_mesh(c_batch, h)
+            if step_mesh is None:
+                states = [self._whole(st) for st in states]
+            else:
+                # the entry capacity is per tile band
+                mesh_args = dict(mesh=step_mesh, state_mesh=self.mesh,
+                                 shard_splats=self.shard_splats)
+                capacity = max(capacity // step_mesh.shape["tp"], 4096)
         return dict(
             names=names,
             args=dict(states=states, trainable=trainable, mods=g.mods,
@@ -473,7 +603,8 @@ class SceneTrainer:
                       lambda_tv=optp.lambda_tv, lambda_tv_depth=optp.lambda_tv_depth,
                       lambda_scale=optp.lambda_scale,
                       guidance_scale=self.guidance_opt.guidance_scale,
-                      lambda_guidance=self.guidance_opt.lambda_guidance, use_cn=use_cn))
+                      lambda_guidance=self.guidance_opt.lambda_guidance, use_cn=use_cn,
+                      **mesh_args))
 
     def _run_scene_step(self, cameras, key_gs, only_env, scene_optim, stage_step_rate,
                         guidance_on=True, gt_images=None, optp=None) -> float:
@@ -481,11 +612,15 @@ class SceneTrainer:
         inp = self.step_inputs(cameras, key_gs, only_env, scene_optim, stage_step_rate,
                                guidance_on, gt_images, optp)
         names, args = inp["names"], inp["args"]
+        cap_base = sum(s.global_capacity or s.capacity for s in args["states"]) // 2
+        if self.mesh is not None:
+            # n_entries / n_dropped are per tile band: the controller sizes
+            # the per-band table
+            cap_base = max(cap_base // self.mesh.shape["tp"], 4096)
         res = scene_step(**args)
         loss, n_entries, n_dropped = torch.stack(
             [res["loss"].double(), res["n_entries"].double(),
              res["n_dropped"].double()]).tolist()
-        cap_base = sum(s.capacity for s in args["states"]) // 2
         self.last_stats = dict(n_entries=int(n_entries), n_dropped=int(n_dropped),
                                n_rungs=len(args["ladder"]), capacity=args["capacity"])
         if self.cap_ctrl.update(cap_base, int(n_entries), int(n_dropped)):
@@ -498,7 +633,8 @@ class SceneTrainer:
     def _densify_model(self, which: str, optp, max_pts: int, size_threshold=None):
         """densify_and_prune with split samples seeded from the host
         generator, consumed where the JAX trainer draws its key."""
-        st = getattr(self.scene, which)
+        st = self._whole(getattr(self.scene, which))
+        setattr(self.scene, which, st)
         if num_active(st) < max_pts:
             seed = int(self.rng.integers(0, 2**31))
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -541,7 +677,7 @@ class SceneTrainer:
         """One pseudo-GT image per camera, C_batch at a time (reference
         scene_trainer.py:1596-1735)."""
         g = self.guidance
-        states = self._states(self._visible_names(only_env))
+        states = [self._whole(st) for st in self._states(self._visible_names(only_env))]
         step_size = self.guidance_opt.C_batch_size
         h, w = self.scene_pose_args.image_h, self.scene_pose_args.image_w
         gts = []
@@ -603,8 +739,12 @@ class SceneTrainer:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def scene_video_inference(self, tag, only_env=False, max_frames=None):
-        """Walkthrough rgb + depth videos (reference scene_trainer.py:262-295)."""
-        states = self._states(self._visible_names(only_env))
+        """Walkthrough rgb + depth videos (reference scene_trainer.py:262-295),
+        rendered and written by rank 0."""
+        states = [self._whole(st) for st in self._states(self._visible_names(only_env))]
+        self._rank0_only(lambda: self._write_videos(states, tag, max_frames))
+
+    def _write_videos(self, states, tag, max_frames):
         frames, depths, alphas = [], [], []
         for cam in self.scene_cams_inference[:max_frames]:
             out = scene_render(states, cam, bg_color=self.bg_color, test=True)
@@ -700,8 +840,10 @@ class SceneTrainer:
         if make_videos:
             self.scene_video_inference("final")
 
-        combined = final_combine_all(self._states(self._visible_names(False)))
-        save_splat_ply(str(self.scene_ckpt_path / "scene_final_model.ply"), combined)
+        combined = final_combine_all([self._whole(st)
+                                      for st in self._states(self._visible_names(False))])
+        self._rank0_only(lambda: save_splat_ply(
+            str(self.scene_ckpt_path / "scene_final_model.ply"), combined))
         return combined
 
     # -- stage camera pools ---------------------------------------------

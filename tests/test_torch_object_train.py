@@ -274,8 +274,10 @@ def test_controlnet_key_ignored_mesh_exported_and_mesh_devices_raise(tmp_path):
     """guidanceParams.controlnet_model_key is read by build_sd_guidance
     only: prepare_train builds the tiny stack without a ControlNet, as the
     JAX trainer does. mode_args.export_mesh makes train() end with
-    `<id>_mesh.ply`. A multi-device layout (parallelParams dp*tp > 1)
-    still raises. The CLI's scene mode builds a SceneTrainer."""
+    `<id>_mesh.ply`. A multi-device layout (parallelParams dp*tp > 1) whose
+    world size is not dp * tp raises a ValueError naming all three numbers
+    (a single process is a world of 1). The CLI's scene mode builds a
+    SceneTrainer."""
     for pkg, cfg, kw in ((JOT, _tiny_cfg(JCfg()), dict(interpret=True)),
                          (TOT, _tiny_cfg(TCfg()), dict(device="cpu"))):
         cfg.guidanceParams.controlnet_model_key = "some/controlnet"
@@ -296,7 +298,7 @@ def test_controlnet_key_ignored_mesh_exported_and_mesh_devices_raise(tmp_path):
     assert n_verts > 0 and n_faces > 0, header
     cfg = _tiny_cfg(TCfg())
     cfg.parallelParams.dp = 2
-    with pytest.raises(NotImplementedError, match="dp\\*tp"):
+    with pytest.raises(ValueError, match="world size 1 is not dp 2 x tp 1 = 2 ranks"):
         TOT.ObjectTrainer(cfg, exp_root=str(tmp_path), device="cpu")
     # without --object the CLI now runs the scene pipeline (ported): it
     # builds a SceneTrainer on the config and calls train()
