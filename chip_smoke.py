@@ -105,9 +105,32 @@ Phases (any failure exits non-zero; nothing is caught):
      recon step, a profiled step. Per rank: step ms, host seconds inside
      collectives, MB all-gathered, peak memory, and the summed span of its
      kernels (the card time-slices the ranks' contexts, so a span holds
-     other ranks' slices: not the rank's work).
+     other ranks' slices: not the rank's work);
+ 14. the JAX package's last modules on the card; 14b-14d run right after
+     the phase whose state they take, 14a and 14e last:
+     14a. the KNN library that sets initial log-scales (csrc/host/knn.cpp,
+     built with g++ at the start, its time printed) and create_from_points
+     timed on phase 2's 50K-point ball;
+     14b. (after phase 6) config #4's scene seen by load_single_cam at
+     1920x1080 from the scene box's centre towards the first object:
+     rendered forward + backward at a capacity the capacity controller
+     sizes (drops printed, launches checked), K1-K3 held against their
+     plain versions and timed at 32x16 (4,080 tiles) and 16x16 (8,160
+     tiles, the order kernel above 48 KB of shared memory, its time
+     printed: K1 less the same launch without it), the live tiles of the
+     partial last tile row;
+     14c. (after phase 9) mtsd.denoise_ladder on phase 3's stack (64x64
+     latents, batch 1, 3 rungs, DS_FLASH_ATTN=1): K4 forward launches
+     checked, the walk timed, K4 at the walk's shapes [3,5,4096,64] and
+     [3,10,1024,64]; the tiny stack's walk card against CPU (float32,
+     atol 1e-4);
+     14d. (after phase 9) one gate-set FPS step of phase 3's trainer inside
+     utils/profiling.trace, whose Chrome trace must name every K1-K4
+     kernel symbol;
+     14e. l1_loss and ssim on a [4,3,512,512] pair, card against CPU
+     (atol 1e-5).
 The line before the last is the kernel table as JSON (launches by path;
-K1-K3 also at both scene shapes); the last line is
+K1-K3 also at the scene, band and single-camera shapes); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -128,10 +151,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# peak rates of one H100 SXM (NVIDIA data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
 # float operations per evaluated (entry, pixel) pair, counted from the
 # kernels' inner loops (csrc/composite_*.cu): K1 evaluates alpha (~16 incl.
 # exp) and accumulates (~11); K2 replays alpha and forms the 10 per-entry
@@ -343,10 +362,7 @@ def check_kernels(label, inp, timing):
                + 16 * n_chunks * inp["chunk"] * 4),
         ops=pairs * BWD_OPS_PER_PAIR)
     for r in rows.values():
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["ops"] / FP32_FLOPS * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r["bound_ms"], r["bound_by"] = bound(r["ops"], r["bytes"], torch.float32)
     log(f"[kernels] full-width times: " + json.dumps(
         {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms", "launch_host_ms",
                                   "call_host_ms") if kk in v}
@@ -368,8 +384,14 @@ def k4_flops_bytes(shape, dtype):
 
 
 def bound(flops, nbytes, dtype):
-    t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS) * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    """The least time one H100 could take (ms) and what bounds it: the
+    operations over the peak rate of their type, or the bytes over HBM's
+    rate (the peaks of utils/profiling.py)."""
+    from dreamscene_tpu_torch.utils import profiling as P
+
+    peak = P.H100_BF16_FLOPS if dtype == torch.bfloat16 else P.H100_FP32_FLOPS
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / P.H100_HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -2179,12 +2201,269 @@ def run_mesh_scene():
     return counts
 
 
+# ------------------------------------------------------------------- phase 14
+SINGLE_CAM_TILES = ((32, 16), (16, 16))
+
+
+def run_single_cam(tr):
+    """Phase 14b: config #4's scene (phase 6's trainer) seen by
+    load_single_cam at 1920x1080 from the scene box's centre towards the
+    first object's placement: the frame rendered forward + backward through
+    scene_render at an entry capacity the capacity controller sizes (launch
+    counts checked), then K1-K3 held against their plain versions and
+    timed at 32x16 and 16x16 tiles (chunk 512), the live tiles of the
+    partial last tile row (1080 = 67 x 16 + 8) and the order kernel's
+    time. Returns (launch counts of the render, rows by tiling,
+    errors)."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.bench.scenes import binned_inputs
+    from dreamscene_tpu_torch.cameras.sampling import load_single_cam
+    from dreamscene_tpu_torch.models.scene import final_combine_all
+    from dreamscene_tpu_torch.ops import composite as C
+    from dreamscene_tpu_torch.rendering import scene_render
+    from dreamscene_tpu_torch.training.capacity import CapacityController
+
+    box = tr.scene.scene_box
+    centre = (box[:3].astype(np.float64) + box[3:]) / 2
+    target = np.asarray(tr.scene.objects_args[0].affine["T"], np.float64)
+    cam = load_single_cam(tr.scene_pose_args, camera_center=tuple(centre),
+                          object_center=tuple(target))
+    sts = tr._states(list(tr.scene.objects))
+    cap_base = sum(st.capacity for st in sts) // 2
+    ctrl = CapacityController(mult=4, min_mult=2, max_mult=16)    # the scene trainer's
+
+    def render():
+        env = sts[-1]
+        xyz = env.params["xyz"].detach().requires_grad_(True)
+        states = sts[:-1] + [dataclasses.replace(env, params=dict(env.params, xyz=xyz))]
+        out = scene_render(states, cam, bg_color=(0.0, 0.0, 0.0), test=True,
+                           capacity=ctrl.capacity(cap_base))
+        (out["image"].mean() + 0.1 * out["depth"].mean()).backward()
+        return out, xyz.grad
+
+    sizing = []
+    while True:       # grow until nothing drops, as the controller does over steps
+        out, grad = render()
+        n_entries, n_dropped = int(out["n_entries"]), int(out["n_dropped"])
+        sizing.append({"capacity": ctrl.capacity(cap_base), "n_entries": n_entries,
+                       "n_dropped": n_dropped})
+        if not ctrl.update(cap_base, n_entries, n_dropped):
+            break
+    capacity = ctrl.capacity(cap_base)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    out, grad = render()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(kernels.COUNTS)
+    assert all(counts[k] == 1 for k in K1_K3), counts
+    assert tuple(out["image"].shape) == (3, 1080, 1920) and torch.isfinite(out["image"]).all()
+    assert torch.isfinite(grad).all() and float(grad.abs().max()) > 0
+    log(json.dumps({"single_cam_render": {
+        "camera_center": centre.tolist(), "object_center": target.tolist(),
+        "delta_azimuth": cam.delta_azimuth, "fovx": cam.fovx, "fovy": cam.fovy,
+        "capacity_sizing": sizing, "ms_fwd_bwd": ms, "launches": counts}}))
+
+    combined = final_combine_all(sts)
+    sh = min(st.active_sh_degree for st in sts)
+    rows, errs = {}, {k: 0.0 for k in K1_K3}
+    for tw, th in SINGLE_CAM_TILES:
+        inp = binned_inputs(combined, cam, tw, th, capacity=capacity, sh_degree=sh)
+        b = inp["binned"]
+        label = f"config #4 single cam 1920x1080 {tw}x{th}"
+        e, r = check_kernels(label, inp, timing=True)
+        errs = {k: max(errs[k], e[k]) for k in K1_K3}
+        # live entries of each tile of the partial last tile row
+        ct, _, lo, hi, _, n_used = inp["meta"]
+        n_u, n_tiles, tiles_x = int(n_used), inp["n_tiles"], inp["tiles_x"]
+        live = torch.zeros(n_tiles + 1, dtype=torch.long, device=ct.device)
+        live.index_add_(0, ct[:n_u].long(), (hi[:n_u] - lo[:n_u]).clamp_min(0).long())
+        last = live[n_tiles - tiles_x:n_tiles]
+        # the order kernel's time: K1 less the same launch with a null
+        # tile-order pointer (no order kernel, the tiles dispatched in index
+        # order: the launcher's bench mode), both by CUDA events; it holds any
+        # change the dispatch order makes to the compositing kernel's time
+        k1 = C.prepare_forward(inp["records_t"], *inp["meta"][:4], n_tiles, tiles_x, tw, th)
+        lib, no_order = kernels.lib(), k1[0][:13] + (None,) + k1[0][14:]
+        kernels.check(lib.ds_composite_fwd(*no_order), "composite_fwd")
+        index_order_ms = cuda_time(lambda: lib.ds_composite_fwd(*no_order), 20)
+        order_ms = r["composite_fwd"]["ms"] - index_order_ms
+        smem = (n_tiles + 1) * 12
+        summary = {"tiles": n_tiles, "tiles_y": n_tiles // tiles_x, "capacity": capacity,
+                   "n_entries": int(b.n_entries), "n_dropped": int(b.n_dropped),
+                   "last_row_pixel_rows": 1080 - (n_tiles // tiles_x - 1) * th,
+                   "last_row_live_tiles": int((last > 0).sum()), "last_row_tiles": tiles_x,
+                   "last_row_entries": int(last.sum()),
+                   "order_kernel_smem_bytes": smem, "order_kernel_opt_in": smem > 48 * 1024,
+                   "k1_ms": r["composite_fwd"]["ms"], "k1_index_order_ms": index_order_ms,
+                   "order_kernel_ms": order_ms}
+        log(f"[kernels] {label}: " + json.dumps(summary))
+        assert summary["last_row_live_tiles"] > 0, summary
+        r["composite_fwd"]["order_kernel_ms"] = order_ms
+        r["composite_fwd"]["index_order_ms"] = index_order_ms
+        rows[f"{tw}x{th}"] = r
+        del inp, k1
+    return counts, rows, errs
+
+
+def run_denoise(guidance):
+    """Phase 14c: mtsd.denoise_ladder at full width on phase 3's
+    SD2.1-architecture stack (bf16, seeded weights): 64x64 latents, batch
+    1, 3 rungs, DS_FLASH_ATTN=1; K4 forward launches checked (10 per UNet
+    pass, every one the tensor-core variant), the walk timed; K4 held
+    against its plain versions at the walk's shapes; then the tiny stack's
+    walk, card against CPU in float32 (atol 1e-4). Returns (launch counts
+    of the timed walk, the K4 rows by label)."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.guidance import mtsd
+    from dreamscene_tpu_torch.utils.config import GuidanceParams
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    lat = torch.randn((1, 64, 64, 4), device="cuda", generator=g)
+    noise = torch.randn((1, 64, 64, 4), device="cuda", generator=g)
+    emb = guidance.get_text_embeds(["a ceramic vase", "blurry", "a photo"])
+    ts = [700, 480, 230]
+
+    def walk():
+        return mtsd.denoise_ladder(guidance.mods, lat, noise, ts, emb, n_rungs=len(ts), cfg=7.5)
+
+    os.environ["DS_FLASH_ATTN"] = "1"
+    try:
+        walk()
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        scores = walk()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(kernels.COUNTS)
+    finally:
+        os.environ.pop("DS_FLASH_ATTN", None)
+    n_fwd = 10 * len(ts)
+    expect = {k: 0 for k in kernels.KERNEL_NAMES + kernels.VARIANT_NAMES}
+    expect.update({"flash_fwd": n_fwd, "flash_fwd.tc": n_fwd})
+    assert counts == expect, (counts, expect)
+    final = scores[-1][2]
+    assert tuple(final.shape) == (1, 64, 64, 4) and torch.isfinite(final.float()).all()
+    assert float((final.float() - scores[0][2].float()).abs().max()) > 1e-2
+    log(json.dumps({"denoise_walk": {"ms": ms, "rungs": ts, "cfg": 7.5, "launches": counts}}))
+
+    k4 = {label: check_flash(label, shape, torch.bfloat16)
+          for label, shape in (("denoise walk unet 64x64 self-attn", (3, 5, 4096, 64)),
+                               ("denoise walk unet 32x32 self-attn", (3, 10, 1024, 64)))}
+
+    # the tiny stack's walk, card against CPU, float32, with a depth hint
+    tiny = mtsd.make_tiny_guidance(GuidanceParams(), with_controlnet=True, device="cpu")
+    fill_zero_convs(tiny.mods.controlnet, torch.Generator().manual_seed(10), 0.2)
+    rng = np.random.RandomState(14)
+    args = [torch.from_numpy(rng.randn(*s).astype(np.float32))
+            for s in ((2, 8, 8, 4), (2, 8, 8, 4), (6, 4, 32))]
+    hint = torch.from_numpy(rng.rand(2, 16, 16, 3).astype(np.float32))
+    ref = mtsd.denoise_ladder(tiny.mods, *args[:2], ts, args[2], n_rungs=3, cfg=7.5,
+                              cond_image=hint)
+    got = mtsd.denoise_ladder(_to(tiny.mods, torch.device("cuda")),
+                              *[a.cuda() for a in args[:2]], ts, args[2].cuda(), n_rungs=3,
+                              cfg=7.5, cond_image=hint.cuda())
+    err = max(float((b.cpu() - a).abs().max())
+              for (_, ra, la), (_, ga, lg) in zip(ref, got)
+              for a, b in zip(ra + (la,), ga + (lg,)))
+    log(f"[denoise] tiny walk (3 rungs, depth hint) card against CPU, float32: "
+        f"max|d| {err:.3g} (atol 1e-4)")
+    assert err <= 1e-4, err
+    return counts, k4
+
+
+def run_trace(tr):
+    """Phase 14d: one gate-set FPS step of phase 3's trainer inside
+    utils/profiling.trace; the Chrome trace it writes must name every K1-K4
+    kernel symbol the step launches. Returns the step's launch counts."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.utils import profiling
+
+    d = fresh_dir("trace")
+    os.environ["DS_FLASH_ATTN"] = "1"
+    try:
+        kernels.reset_counts()
+        with profiling.trace(d):
+            loss = tr.train_step()
+            torch.cuda.synchronize()
+        counts = dict(kernels.COUNTS)
+    finally:
+        os.environ.pop("DS_FLASH_ATTN", None)
+    assert math.isfinite(loss)
+    (path,) = glob.glob(os.path.join(d, "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    symbols = ("expand_kernel", "tile_order_kernel", "composite_fwd_kernel",
+               "composite_bwd_kernel", "flash_fwd_wgmma_kernel", "flash_bwd_dkv_tc_kernel",
+               "flash_bwd_dq_tc_kernel")
+    found = {s: sum(s in n for n in names) for s in symbols}
+    log(json.dumps({"trace": {"file_mb": os.path.getsize(path) / 2**20,
+                              "kernel_names": len(names), "symbols": found,
+                              "launches": counts}}))
+    assert all(found.values()), found
+    assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES), counts
+    shutil.rmtree(d)
+    return counts
+
+
+def run_knn_init(build_s):
+    """Phase 14a: the KNN library (csrc/host/knn.cpp, built with g++ on this
+    machine at the start of the run) and the time create_from_points takes
+    on phase 2's 50K-point ball, its log-scales checked against the
+    distances."""
+    from dreamscene_tpu_torch.models import gaussians as G
+    from dreamscene_tpu_torch.models.init import init_object_points
+
+    pts, cols, sls = init_object_points("default", "", fresh_dir("init"), num_pts=50_000,
+                                        seed=50_000)
+    t0 = time.perf_counter()
+    dist = G.mean_sq_dist_to_3nn(pts)
+    knn_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = G.create_from_points(pts, cols, sh_degree=2, capacity=60_000, spatial_lr_scale=sls,
+                              device="cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = np.log(np.sqrt(np.maximum(dist, 1e-7))).astype(np.float32)
+    assert np.array_equal(st.params["scaling"][:50_000, 0].cpu().numpy(), want)
+    log(json.dumps({"init_knn": {"library": G.knn_library_path().name, "build_s": build_s,
+                                 "flags": G.KNN_FLAGS, "n_points": 50_000,
+                                 "mean_sq_dist_ms": knn_ms, "create_from_points_ms": ms,
+                                 "host_cpus": os.cpu_count()}}))
+
+
+def run_losses():
+    """Phase 14e: l1_loss and ssim (both reductions) on a seeded
+    [4,3,512,512] pair, card against CPU (atol 1e-5), and their card times."""
+    from dreamscene_tpu_torch.ops import losses as L
+
+    rng = np.random.RandomState(15)
+    a = torch.from_numpy(rng.rand(4, 3, 512, 512).astype(np.float32))
+    b = (a + 0.1 * torch.from_numpy(rng.randn(4, 3, 512, 512).astype(np.float32))).clamp(0, 1)
+    ac, bc = a.cuda(), b.cuda()
+    fns = {"l1_loss": L.l1_loss, "ssim": L.ssim,
+           "ssim per image": functools.partial(L.ssim, size_average=False)}
+    errs, times = {}, {}
+    for name, fn in fns.items():
+        ref, got = fn(a, b), fn(ac, bc)
+        errs[name] = float((got.cpu() - ref).abs().max())
+        times[name] = cuda_time(lambda: fn(ac, bc), 10)
+    log(json.dumps({"losses": {"shape": [4, 3, 512, 512], "max_abs_err": errs,
+                               "card_ms": times}}))
+    assert all(e <= 1e-5 for e in errs.values()), errs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.bench.scenes import binned_inputs
+    from dreamscene_tpu_torch.models.gaussians import KNN_FLAGS, build_knn
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2194,6 +2473,9 @@ def main():
     t_build = kernels.build(force=True, verbose=True)
     kernels.lib()
     log(f"[build] kernels built in {t_build:.1f}s")
+    t_knn = build_knn(force=True)
+    log(f"[build] KNN library (csrc/host/knn.cpp, g++ {' '.join(KNN_FLAGS)}) built in "
+        f"{t_knn:.2f}s")
 
     torch.manual_seed(0)
     errs = {k: 0.0 for k in kernels.KERNEL_NAMES}
@@ -2220,6 +2502,11 @@ def main():
     by_path = {}
     by_path["object_steps"], tr = run_slice()
     by_path["controlnet_steps"], cn = run_controlnet_steps(tr)
+    by_path["traced_fps_step"] = run_trace(tr)
+    by_path["denoise_walk"], k4_walk = run_denoise(tr.guidance)
+    for label, r in k4_walk.items():
+        k4[label] = r
+        errs.update({k: max(errs[k], v) for k, v in r["errs"].items()})
     del tr
     torch.cuda.empty_cache()
     by_path["object_train"] = run_train()
@@ -2231,6 +2518,8 @@ def main():
     errs.update({k: max(errs[k], v) for k, v in e.items()})
     by_path["scene_steps"] = {k: gates["unset"][k] + gates["set"][k] for k in kernels.KERNEL_NAMES}
     by_path["controlnet_scene_steps"] = {k: gates["controlnet"][k] for k in kernels.KERNEL_NAMES}
+    by_path["single_cam_render"], single_rows, e = run_single_cam(tr)
+    errs.update({k: max(errs[k], v) for k, v in e.items()})
     guidance, exp_root = tr.guidance, str(tr.exp_path.parent)
     del tr, cn
     torch.cuda.empty_cache()
@@ -2243,6 +2532,8 @@ def main():
     errs.update({k: max(errs[k], v) for k, v in e.items()})
     by_path["mesh_object_steps"] = run_mesh_objects()
     by_path["mesh_scene_steps"] = run_mesh_scene()
+    run_knn_init(t_knn)
+    run_losses()
 
     table = []
     for k in kernels.KERNEL_NAMES:
@@ -2251,12 +2542,18 @@ def main():
         launches = {path: c.get(k, 0) for path, c in by_path.items()}
         scenes = {}
         if k in K1_K3:
-            scenes = {lab: {kk: rr[k][kk] for kk in ("ms", "plain_ms", "bound_ms", "bound_by")}
+            scenes = {lab: {kk: rr[k][kk] for kk in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "order_kernel_ms", "index_order_ms")
+                            if kk in rr[k]}
                       for lab, rr in (("config #3 5x60K 800^2", comp_rows),
                                       ("config #4 scene 512^2", scene_rows),
                                       ("mesh band 512x256 from row 256, chunk 256", band_rows),
                                       ("config #4 mesh band 512x256 from row 256, chunk 256",
-                                       scene_band_rows))}
+                                       scene_band_rows),
+                                      ("config #4 single cam 1920x1080 32x16",
+                                       single_rows["32x16"]),
+                                      ("config #4 single cam 1920x1080 16x16",
+                                       single_rows["16x16"]))}
         table.append({"name": k, "route": "cuda", "variant": r.get("variant", "scalar"),
                       "source": src, "replaces": rep,
                       "launches": sum(launches.values()), "launches_by_path": launches,

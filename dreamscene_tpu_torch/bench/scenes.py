@@ -122,6 +122,7 @@ def binned_inputs(st, cam, tile_w, tile_h, chunk=512, sh_degree=2, capacity=None
     rows): the tile band a rank of the mesh path bins (screen y shifted
     by the first row after projecting against the whole image)."""
     from dreamscene_tpu_torch.ops import binning
+    from dreamscene_tpu_torch.ops.gather import row_gather
     from dreamscene_tpu_torch.ops.projection import project_gaussians
 
     dev = torch.device("cuda")
@@ -151,7 +152,7 @@ def binned_inputs(st, cam, tile_w, tile_h, chunk=512, sh_degree=2, capacity=None
         cap_pad = binning.cdiv(capacity, 128) * 128 + chunk
         gid_pad = torch.cat([b.gid_sorted, torch.zeros(cap_pad - capacity, dtype=torch.int32,
                                                         device=dev)])
-        records_t = rec_n.index_select(0, gid_pad.long()).t().contiguous()
+        records_t = row_gather(rec_n, gid_pad).t().contiguous()
     tiles_x = binning.cdiv(cam.width, tile_w)
     n_tiles = tiles_x * binning.cdiv(height, tile_h)
     meta = (b.chunk_tile, b.chunk_s0, b.chunk_lo, b.chunk_hi, b.chunk_first,

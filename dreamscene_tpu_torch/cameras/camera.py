@@ -69,6 +69,24 @@ def get_projection_matrix(
     return p
 
 
+def get_rays(focal: float, c2w: np.ndarray, H: int = 64, W: int = 64) -> np.ndarray:
+    """Pinhole ray bundle [H, W, 6] (origins + unit dirs) in world space
+    (reference: graphics_utils.py:87-119)."""
+    x, y = np.meshgrid(np.arange(W), np.arange(H), indexing="xy")
+    dirs_cam = np.stack(
+        [
+            (x - W * 0.5 + 0.5) / focal,
+            -(y - H * 0.5 + 0.5) / focal,
+            -np.ones_like(x, dtype=np.float32),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    dirs = dirs_cam @ c2w[:3, :3].T     # numpy, host-side: exact f32
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    origins = np.broadcast_to(c2w[:3, 3], dirs.shape)
+    return np.concatenate([origins, dirs], axis=-1).astype(np.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class Camera:
     """A single render camera.
@@ -118,3 +136,16 @@ class Camera:
     @property
     def tanfovy(self) -> float:
         return math.tan(self.fovy / 2)
+
+    def rays(self, downscale: int = 8) -> np.ndarray:
+        """Low-res ray bundle like the reference's RCamera.rays
+        (reference: cam_utils.py:212-217)."""
+        H, W = self.height // downscale, self.width // downscale
+        c2w = np.linalg.inv(self.world_view_transform)
+        return get_rays(fov2focal(self.fovx, W), c2w, H=H, W=W)
+
+    def scaled(self, ssaa: int) -> "Camera":
+        """Supersampled copy (reference: cam_utils.py:185-191)."""
+        return dataclasses.replace(
+            self, width=self.width * ssaa, height=self.height * ssaa
+        )

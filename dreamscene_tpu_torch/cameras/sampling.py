@@ -1,12 +1,12 @@
 """Object-level camera pose sampling (host-side numpy).
 
-Copy of dreamscene_tpu/cameras/sampling.py, the parts object generation
-uses: random poses, the anti-multi-face curriculum, and the circle /
-clip / sphere / reco rigs (reference: utils/cam_utils.py:47-134,
-229-310, 584-790, 1322-1535, 1732-1892). World convention: z-up; a pose is camera-to-world with columns
-(-right, up, forward) and the camera placed on a sphere at (theta: polar
-from +z, phi: azimuth measured from +y toward +x, i.e. centers =
-r*(sin t sin p, sin t cos p, cos t)).
+Copy of dreamscene_tpu/cameras/sampling.py: random poses, the
+anti-multi-face curriculum, the circle / clip / sphere / reco rigs and the
+single camera (reference: utils/cam_utils.py:47-134, 229-310, 584-790,
+1322-1535, 1732-1970). World convention: z-up; a pose is camera-to-world
+with columns (-right, up, forward) and the camera placed on a sphere at
+(theta: polar from +z, phi: azimuth measured from +y toward +x, i.e.
+centers = r*(sin t sin p, sin t cos p, cos t)).
 
 All randomness flows through an explicit numpy Generator for reproducible
 runs (the reference seeds global `random`/torch, SURVEY.md §4 determinism).
@@ -282,3 +282,22 @@ def load_reco_cam(opt, circle_size=(4, 12, 14, 6), thetas=(100, 85, 75, 55),
             pose = circle_poses(radius, theta, phi)
             cams.append(_make_camera(opt, pose, opt.default_fovy, theta, phi, radius))
     return cams
+
+
+def load_single_cam(opt, camera_center=(0, 0, 0), object_center=(1, 0, 0),
+                    theta=90.0, radius=3.5, fov=0.96, img_w=1920, img_h=1080) -> Camera:
+    """reference: GenSingleCam/loadSingleCam (cam_utils.py:1894-1970)."""
+    oc, cc = np.asarray(object_center, np.float64), np.asarray(camera_center, np.float64)
+    phi = math.degrees(math.atan2(oc[0] - cc[0], oc[1] - cc[1])) + 180.0
+    pose = circle_poses(radius, theta, phi)
+    R, T = _pose_to_rt(pose)
+    fovy = focal2fov(fov2focal(fov, img_h), img_w)
+    d_azim = phi - opt.default_azimuth
+    if d_azim > 180:
+        d_azim -= 360
+    return Camera(
+        R=R.astype(np.float32), T=T.astype(np.float32), fovx=fov, fovy=fovy,
+        width=img_w, height=img_h,
+        delta_polar=theta - opt.default_polar, delta_azimuth=d_azim,
+        delta_radius=radius - opt.default_radius, trans=tuple(cc),
+    )

@@ -14,7 +14,8 @@ guidance/multitime_sd_utils.py:44-647):
   * `specify_gradient_loss` — sum(latents * grad.detach());
   * `pseudo_gt_images` — the decoded x0-hat of the first rung, the
     refine phase's pseudo ground truth; `guidance_viz_grid` — the
-    per-interval debug grid.
+    per-interval debug grid;
+  * `denoise_ladder` — the reference's CFG denoising walk down a ladder.
 Latents cross these functions as NHWC [B, h, w, 4] and images as NCHW, as
 in the JAX package; the modules run NCHW inside.
 
@@ -219,6 +220,41 @@ def pseudo_gt_images(mods: GuidanceModules, scores, guidance_scale: float):
     x0 = pred_original(mods.schedule, pred_noise,
                        torch.full((lat.shape[0],), t_i, device=lat.device), lat)
     return decode_latents(mods, x0)
+
+
+@torch.no_grad()
+def denoise_ladder(mods: GuidanceModules, latents, noise, ts, text_emb, n_rungs: int,
+                   cfg: float = 1.0, eta: float = 0.0, is_noisy_latent: bool = False,
+                   cond_image=None):
+    """The full CFG denoising walk (reference denoise_with_cfg,
+    multitime_sd_utils.py:560-628): noise to ts[0] (unless the latents are
+    already noisy), then step down the ladder with the CFG-combined
+    prediction. Returns the list of (t, (cond, uncond, blank), latent), all
+    NHWC, like `ladder_scores`; the last latent is scores[-1][2]. `ts` are
+    host ints; no variance noise enters the step, as in the JAX package."""
+    b = latents.shape[0]
+    dev = latents.device
+    ts = [int(t) for t in ts]
+    if is_noisy_latent:
+        lat = latents
+    else:
+        lat = add_noise(mods.schedule, latents, noise,
+                        torch.full((b,), ts[0], dtype=torch.int32, device=dev))
+    cond3 = _cond3(mods, cond_image)
+    outs = []
+    t_i = ts[0]
+    for i in range(n_rungs):
+        inp = torch.cat([lat, lat, lat], dim=0)
+        t_b = torch.full((3 * b,), t_i, dtype=torch.int32, device=dev)
+        eps = _nhwc(_apply_unet(mods, _nchw(inp), t_b, text_emb, cond3))
+        cond, uncond, blank = eps.chunk(3, dim=0)
+        outs.append((t_i, (cond, uncond, blank), lat))
+        if i + 1 < n_rungs:
+            pred_noise = uncond + cfg * (cond - uncond)
+            lat, _ = ddim_step(mods.schedule, pred_noise, torch.full((b,), t_i, device=dev),
+                               lat, t_i - ts[i + 1], eta)
+            t_i = ts[i + 1]
+    return outs
 
 
 @torch.no_grad()

@@ -18,6 +18,7 @@ tensor-core variant (`VARIANT_NAMES`).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import fcntl
 import os
@@ -122,12 +123,19 @@ def build(force: bool = False, verbose: bool = False) -> float:
     files."""
     if not force and not _stale():
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with build_lock(BUILD_DIR):
         if not force and not _stale():
             return 0.0
         return _compile(verbose)
+
+
+@contextlib.contextmanager
+def build_lock(directory: Path):
+    """Hold an exclusive `flock` on `directory`/.lock (made if missing)."""
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
 
 
 def _compile(verbose: bool) -> float:

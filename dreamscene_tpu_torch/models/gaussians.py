@@ -10,11 +10,19 @@ frozen.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from dreamscene_tpu_torch import kernels
 from dreamscene_tpu_torch.ops.sh import RGB2SH
 
 PARAM_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
@@ -102,14 +110,74 @@ def num_active(state: GaussianState) -> int:
     return int(state.aux["active"].sum())
 
 
+# csrc/host/knn.cpp, the port's copy of the JAX package's native/knn.cpp,
+# is built with native/build.sh's flags: the same float32 arithmetic with
+# multiply-adds contracted gives the same distances, bit for bit
+KNN_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "host" / "knn.cpp"
+KNN_FLAGS = ["-O3", "-march=native", "-fopenmp", "-shared", "-fPIC"]
+_KNN_LIB = None
+_KNN_LOCK = threading.Lock()
+
+
+def knn_library_path() -> Path:
+    """Where the KNN library lives: under build/host/, named for this
+    host's CPU flags, since -march=native compiles for the CPU it runs on
+    (a build directory copied to another machine is not loaded there)."""
+    with open("/proc/cpuinfo") as f:
+        flags = next((line for line in f if line.startswith("flags")), "")
+    key = hashlib.md5(flags.encode()).hexdigest()[:12]
+    return kernels.BUILD_DIR.parent / "host" / f"libdsknn.{key}.so"
+
+
+def build_knn(force: bool = False) -> float:
+    """Compile csrc/host/knn.cpp with g++ when the library is missing or
+    older than its source (or when `force`); returns the seconds spent.
+    Processes that start together build once, under the lock that
+    kernels.build takes, each to its own temporary file renamed into place.
+    A failed build raises."""
+    path = knn_library_path()
+
+    def stale():
+        return force or not path.exists() or KNN_SOURCE.stat().st_mtime > path.stat().st_mtime
+
+    if not stale():
+        return 0.0
+    with kernels.build_lock(path.parent):
+        if not stale():
+            return 0.0
+        t0 = time.perf_counter()
+        tmp = path.with_suffix(f".{os.getpid()}.tmp.so")
+        res = subprocess.run(["g++", *KNN_FLAGS, "-o", str(tmp), str(KNN_SOURCE)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed on {KNN_SOURCE.name}:\n{res.stdout}{res.stderr}")
+        os.replace(tmp, path)
+        return time.perf_counter() - t0
+
+
+def _knn_lib() -> ctypes.CDLL:
+    global _KNN_LIB
+    with _KNN_LOCK:
+        if _KNN_LIB is None:
+            build_knn()
+            lib = ctypes.CDLL(str(knn_library_path()))
+            lib.knn3_mean_sq_dist.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                                              ctypes.POINTER(ctypes.c_float)]
+            lib.knn3_mean_sq_dist.restype = None
+            _KNN_LIB = lib
+    return _KNN_LIB
+
+
 def mean_sq_dist_to_3nn(points: np.ndarray) -> np.ndarray:
     """Mean squared distance to the 3 nearest neighbours (the reference's
-    distCUDA2), exact, through scipy's cKDTree."""
-    from scipy.spatial import cKDTree
-
-    tree = cKDTree(points)
-    d, _ = tree.query(points, k=4, workers=-1)   # self + 3 NN
-    return (d[:, 1:] ** 2).mean(axis=1)
+    distCUDA2), in float32 by the grid-hash KNN of csrc/host/knn.cpp, as the
+    JAX package computes it. There is no fallback: a library that fails to
+    build or load raises."""
+    pts = np.ascontiguousarray(points, np.float32)
+    out = np.empty(pts.shape[0], np.float32)
+    _knn_lib().knn3_mean_sq_dist(pts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                                 pts.shape[0], out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out.astype(np.float64)
 
 
 def resize(state: GaussianState, new_capacity: int) -> GaussianState:

@@ -3,9 +3,9 @@
 gs_renderer.py:218-426):
 
   * object `default`: uniform ball via radius*cbrt(u) (gs_renderer.py:355-372);
-  * object `pointe*`: the ball as well — point-e is an optional external
-    model and the JAX package also falls back to the ball when it is
-    absent (init.py:128-137);
+  * object `pointe*`: point-e's text-to-cloud (utils/pointe.py), each point
+    spread over a jitter ball (gs_renderer.py:380-414); the ball init when
+    point-e or its weights are absent, as in the JAX package;
   * object `shapes`: area-weighted surface samples of a local OBJ mesh with
     the reference's axis swap, centring and /80 scaling
     (gs_renderer.py:334-349);
@@ -15,7 +15,7 @@ gs_renderer.py:218-426):
 
 Same numpy RandomState streams, drawn in the same order, as the JAX
 package, so the same points come out for the same seed, bit for bit.
-`default` and `shapes` clouds are cached as
+`default`, `shapes` and point-e clouds are cached as
 "<md5(model-prompt)>_init_points3d.ply" in the experiment directory and
 read back from there when present, as the JAX package does.
 """
@@ -81,21 +81,27 @@ def _load_mesh(path: str):
 
 def init_object_points(init_guided: str, init_prompt: str, exp_path: str,
                        num_pts: int = 20000, radius: float = 0.5,
-                       use_pointe_rgb: bool = False, seed: int = 0):
-    """Returns (points [N,3], colors [N,3] in [0,1], spatial_lr_scale)."""
+                       use_pointe_rgb: bool = False, seed: int = 0, device="cpu"):
+    """Returns (points [N,3], colors [N,3] in [0,1], spatial_lr_scale).
+    `device` is where point-e runs for the `pointe*` inits."""
     rng = np.random.RandomState(seed)
     ply_path = os.path.join(exp_path, hash_prompt(init_guided, init_prompt)
                             + "_init_points3d.ply")
     if os.path.exists(ply_path):
         pts, rgb = fetch_point_ply(ply_path)
         return pts, rgb, 10.0 if init_guided == "default" else 1.0
+    if init_guided.startswith("pointe"):
+        base = _try_pointe(init_prompt, init_guided, device)
+        if base is not None:
+            xyz, rgb = _spread_pointe_cloud(*base, rng, use_pointe_rgb)
+            store_point_ply(ply_path, xyz, rgb * 255)
+            return xyz.astype(np.float32), rgb.astype(np.float32), 1.0
+        logger.warning("point-e unavailable and no cached init cloud at %s; "
+                       "falling back to ball init", ply_path)
     if init_guided == "default" or init_guided.startswith("pointe"):
-        if init_guided != "default":
-            logger.warning("point-e is not available to the port; "
-                           "falling back to the ball init")
         xyz = sample_ball(num_pts, radius, rng)
         rgb = SH2RGB(rng.random((num_pts, 3)) / 255.0)
-        if init_guided == "default":
+        if init_guided == "default":       # the fallback ball is not cached
             store_point_ply(ply_path, xyz, rgb * 255)
         sls = 10.0 if init_guided == "default" else 1.0
         return xyz.astype(np.float32), rgb.astype(np.float32), sls
@@ -112,6 +118,41 @@ def init_object_points(init_guided: str, init_prompt: str, exp_path: str,
         store_point_ply(ply_path, adj, rgb * 255)
         return adj.astype(np.float32), rgb.astype(np.float32), 1.0
     raise ValueError(f"unknown init_guided: {init_guided}")
+
+
+def _spread_pointe_cloud(xyz0, rgb0, rng: np.random.RandomState, use_pointe_rgb: bool):
+    """point-e's [4096, 3] cloud with y flipped and z lifted by 0.15, each
+    point spread over the same 20 jitter-ball offsets; its own colours
+    (plus 1e-4 noise) or random ones (gs_renderer.py:380-414)."""
+    xyz0 = xyz0.copy()
+    xyz0[:, 1] = -xyz0[:, 1]
+    xyz0[:, 2] = xyz0[:, 2] + 0.15
+    n_ball = 20                           # 100000 // 5000
+    thetas = rng.rand(n_ball) * np.pi
+    phis = rng.rand(n_ball) * 2 * np.pi
+    r = rng.rand(n_ball) * 0.05
+    ball = np.stack([r * np.sin(thetas) * np.sin(phis),
+                     r * np.sin(thetas) * np.cos(phis),
+                     r * np.cos(thetas)], axis=-1)
+    xyz = (xyz0[:, None, :] + ball[None, :, :]).reshape(-1, 3)
+    if use_pointe_rgb:
+        rgb = (rgb0[:, None, :] + rng.random((4096, n_ball, 3)) * 1e-4).reshape(-1, 3)
+    else:
+        rgb = SH2RGB(rng.random((xyz.shape[0], 3)) / 255.0)
+    return xyz, rgb
+
+
+def _try_pointe(prompt: str, variant: str, device):
+    """point-e's text-to-cloud (utils/pointe.py): (xyz [4096,3], rgb
+    [4096,3]), or None when point-e or its weights are unavailable; the
+    warning names what failed."""
+    try:
+        from dreamscene_tpu_torch.utils.pointe import init_from_pointe
+
+        return init_from_pointe(prompt, variant, device)
+    except Exception as e:     # the JAX package also takes any failure as "unavailable"
+        logger.warning("point-e init failed: %s: %s", type(e).__name__, e)
+        return None
 
 
 def init_env_points(cam_pose_method: str, scene_box: np.ndarray,

@@ -16,8 +16,9 @@ and bit-equal integer outputs:
      windows [lo, hi);
   5. `pos_of_entry`, the grad-table column of each expansion entry, for the
      rasterizer's sort-free gradient reduction.
-The JAX package's `u16_row_gather` is a TPU layout trick; here it is plain
-index gathering. Overflow past `capacity` drops the farthest splats
+The capsule channels go into rank order through `ops/gather.py`'s
+`row_gather_i32`, the counterpart of the JAX package's uint16-halves
+gather. Overflow past `capacity` drops the farthest splats
 (`n_dropped`).
 """
 
@@ -29,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from dreamscene_tpu_torch.ops.expand import expand_entries
+from dreamscene_tpu_torch.ops.gather import row_gather_i32
 
 # Tile shape: an explicit argument, else DS_TILE_W / DS_TILE_H, else 32x16,
 # as the JAX package resolves it (its ops/binning.py:61-75). The variables
@@ -190,7 +192,8 @@ def expand_args(means2d, depths, radii, visible, width: int, height: int,
     count = count0[perm]
     caps = None
     if use_cull:
-        caps = tuple(c[perm].contiguous() for c in _capsule_params(means2d, conics, opacities))
+        caps0 = torch.stack(_capsule_params(means2d, conics, opacities), dim=1)
+        caps = tuple(row_gather_i32(caps0, perm).t().contiguous())       # rank order
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     inv_perm = torch.empty_like(idx)
     inv_perm[perm] = idx

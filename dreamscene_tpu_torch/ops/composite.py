@@ -231,8 +231,17 @@ def _chunk_block(records_t, us, chunk_tile, chunk_s0, chunk_lo, chunk_hi,
     alpha = torch.where((power > 0.0) | (raw < ALPHA_MIN) | ~lanemask[:, None, :],
                         torch.zeros_like(alpha), alpha)
     q = 1.0 - alpha
-    p_incl = torch.cumprod(q, dim=2)
-    t_incl = t_carry[:, :, None] * p_incl
+    # T entry by entry, t <- t * q, in K1's order: a scan (cumprod) would
+    # associate the product otherwise, and its last ulp can carry T across
+    # the 1e-4 stop on one side only (seen at 1920x1080 on the card). Lanes
+    # outside [min lo, max hi) have q = 1 and leave T as it is.
+    l0, l1 = int(lo.min()), int(hi.max())
+    t, steps = t_carry, []
+    for l in range(l0, l1):
+        t = t * q[:, :, l]
+        steps.append(t)
+    t_incl = torch.cat([t_carry[:, :, None].expand(-1, -1, l0), torch.stack(steps, dim=2),
+                        t[:, :, None].expand(-1, -1, chunk - l1)], dim=2)
     t_excl = torch.cat([t_carry[:, :, None], t_incl[:, :, :-1]], dim=2)
     applied = torch.cumprod((t_incl >= TRANSMITTANCE_EPS).to(torch.int8), dim=2).bool()
     contrib = torch.where(applied, t_excl * alpha, torch.zeros_like(alpha))

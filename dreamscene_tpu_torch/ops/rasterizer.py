@@ -27,6 +27,7 @@ from dreamscene_tpu_torch.ops.composite import (
     composite_backward,
     composite_forward_carry,
 )
+from dreamscene_tpu_torch.ops.gather import row_gather
 from dreamscene_tpu_torch.ops.projection import project_gaussians
 
 
@@ -60,7 +61,7 @@ class GatherComposite(torch.autograd.Function):
     def forward(ctx, rec_n, inv_perm, gid_pad, pos_of_entry, surv, seg_starts,
                 chunk_tile, chunk_s0, chunk_lo, chunk_hi, chunk_first,
                 n_chunks_used, n_tiles, tiles_x, chunk, tile_w, tile_h):
-        records_t = rec_n.index_select(0, gid_pad.long()).t().contiguous()
+        records_t = row_gather(rec_n, gid_pad).t().contiguous()
         meta = (chunk_tile, chunk_s0, chunk_lo, chunk_hi, chunk_first, n_chunks_used)
         out, carry = composite_forward_carry(records_t, *meta, n_tiles=n_tiles,
                                              tiles_x=tiles_x, chunk=chunk, tile_w=tile_w,
@@ -91,7 +92,7 @@ class GatherComposite(torch.autograd.Function):
                           torch.zeros((), device=csum.device))
         top = torch.cat([bot[1:], csum[-1:]], dim=0)
         grad_rank = top - bot
-        grad_n = grad_rank[inv_perm.long()]
+        grad_n = row_gather(grad_rank, inv_perm)
         grad_n = torch.cat(
             [grad_n, grad_n.new_zeros((grad_n.shape[0], REC_WIDTH - N_LIVE_FIELDS))],
             dim=1)

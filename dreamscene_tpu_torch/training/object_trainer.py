@@ -338,7 +338,8 @@ class ObjectTrainer:
             pts, cols, sls = PD.from_rank0(lambda: init_object_points(
                 self.obj.init_guided, self.obj.init_prompt, str(self.exp_path),
                 num_pts=self.obj.num_pts, radius=self.obj.radius,
-                use_pointe_rgb=self.obj.use_pointe_rgb, seed=cfg.seed))
+                use_pointe_rgb=self.obj.use_pointe_rgb, seed=cfg.seed,
+                device=self.device))
             cap = min(max(int(pts.shape[0] * 4), 1 << 14), self.optim.max_point_number)
             self.state = create_from_points(pts, cols, sh_degree=self.obj.sh_degree,
                                             capacity=cap, spatial_lr_scale=sls,

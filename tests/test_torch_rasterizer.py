@@ -275,3 +275,39 @@ def test_tile_order_busiest_first(tw, th):
     keys = [(-live[t], t) for t in order.tolist()]
     assert keys == sorted(keys)
     assert live[int(order[0])] == max(live) > live[int(order[-1])] == 0
+
+
+def test_plain_transmittance_is_the_sequential_product():
+    """The plain compositing version multiplies T entry by entry,
+    t <- t * (1 - alpha), as K1 does: a scan associates the product
+    otherwise, and on the card its last ulp once carried T across the 1e-4
+    stop on one side only (config #4 at 1920x1080). Bit-equal to a float32
+    loop, the stop included."""
+    from dreamscene_tpu_torch.ops import composite as C
+
+    rng = np.random.RandomState(9)
+    chunk, tile_w, tile_h = 128, 8, 4
+    rec = np.zeros((C.REC_WIDTH, chunk), np.float32)
+    rec[C.F_MX] = rng.uniform(0, tile_w, chunk)
+    rec[C.F_MY] = rng.uniform(0, tile_h, chunk)
+    rec[C.F_CA] = rec[C.F_CC] = rng.uniform(0.01, 0.3, chunk)
+    rec[C.F_OPA] = rng.uniform(0.05, 0.25, chunk)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)
+    t_carry = torch.from_numpy(rng.uniform(0.5, 1.0, (1, tile_w * tile_h)).astype(np.float32))
+    v = C._chunk_block(torch.from_numpy(rec), i32(0), i32(0), i32(0), i32(3), i32(chunk - 5),
+                       t_carry, 1, chunk, tile_w, tile_h)
+    alpha = v["alpha"][0].numpy()
+    stops = 0
+    for p in range(tile_w * tile_h):
+        t = np.float32(t_carry[0, p])
+        for l in range(chunk):
+            assert v["t_excl"][0, p, l].item() == t
+            t_next = np.float32(t * (np.float32(1) - alpha[p, l]))
+            if t_next < np.float32(C.TRANSMITTANCE_EPS):
+                stops += 1
+                assert not v["applied"][0, p, l:].any()
+                break
+            assert v["applied"][0, p, l]
+            t = t_next
+        assert v["t_new"][0, p].item() == t
+    assert stops > 0
