@@ -128,9 +128,35 @@ Phases (any failure exits non-zero; nothing is caught):
      utils/profiling.trace, whose Chrome trace must name every K1-K4
      kernel symbol;
      14e. l1_loss and ssim on a [4,3,512,512] pair, card against CPU
-     (atol 1e-5).
+     (atol 1e-5);
+ 15. config #5 (BASELINE.json): configs/scenes/sample_outdoor.yaml as
+     shipped at env density 1.0, on phase 6's guidance stack with
+     DS_FLASH_ATTN=1, right after phase 8:
+     15a. its two objects written as finished PLYs (point-e never runs),
+     object_task, prepare_train_scene (compress, two placements, the env
+     hemisphere shell and the floor disk); the census per model (active,
+     capacity, bytes), env and floor held to the init formula;
+     15b. 2 + 5 stage-1 steps of floor + env alone (only_env) and 5
+     stage-2 steps at train()'s outdoor ranges, launch counts checked, a
+     profiled stage-1 step, peak memory;
+     15c. K1-K3 held against their plain versions and timed on a
+     Stage1_Outdoor view (from inside the shell, looking outward; 32x16)
+     and on a mirrored (scale -1) Stage2_Outdoor view (the floor near the
+     horizon; 32x16 and 16x16), drops printed;
+     15d. SceneTrainer.train(n_stage3=1, make_videos=True, video_every=3)
+     with 3 stage-1 and 1 stage-2 steps: the only-env videos, checkpoints,
+     the 80-camera pseudo-GT bank and the floor-only recon steps (env and
+     objects held bit-equal, the floor moving), the final video and PLY;
+     15e. the CLI as subprocesses in 15d's experiment root: `python3 -m
+     dreamscene_tpu_torch --config configs/scenes/sample_outdoor.yaml
+     --exp-root ROOT only_render=true` (the walkthrough's frames counted
+     against its cameras, no checkpoint written), then without only_render
+     (resumes at stage 3, trains nothing);
+     15f. phase 8 on the outdoor tiny scene: a stage-1 only-env step and a
+     stage-3 floor recon step, card against CPU.
 The line before the last is the kernel table as JSON (launches by path;
-K1-K3 also at the scene, band and single-camera shapes); the last line is
+K1-K3 also at the scene, band, single-camera and outdoor shapes); the last
+line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1327,9 +1353,10 @@ def run_composition():
 
 
 def write_scene_objects(tr, n_pts=50_000):
-    """Each scene object's final PLY, as ObjectTrainer.train would leave it:
-    a seeded ball of `n_pts` splats at the object's sh_degree with varied
-    opacities, shapes and colours. object_task then loads it."""
+    """Each scene object's final PLY, as ObjectTrainer.train would leave it
+    (and as point-e's init never runs here): a seeded ball of `n_pts`
+    splats at the object's sh_degree with varied opacities, shapes and
+    colours. object_task then loads it."""
     from dreamscene_tpu_torch.models.gaussians import create_from_points
     from dreamscene_tpu_torch.models.init import init_object_points
     from dreamscene_tpu_torch.models.ply import save_splat_ply
@@ -1356,7 +1383,7 @@ def scene_census(tr) -> dict:
             for n, st in zip(names + ["floor", "env"], tr._states(names))}
 
 
-def scene_steps(tr, cams, key, n, tag) -> list:
+def scene_steps(tr, cams, key, n, tag, only_env=False) -> list:
     """`n` scene_train_step()s over consecutive C_batch slices of `cams`,
     each synchronized and timed; returns the per-step records."""
     c = tr.guidance_opt.C_batch_size
@@ -1364,7 +1391,7 @@ def scene_steps(tr, cams, key, n, tag) -> list:
     for i in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = tr.scene_train_step(cams[i * c:(i + 1) * c], key)
+        loss = tr.scene_train_step(cams[i * c:(i + 1) * c], key, only_env=only_env)
         torch.cuda.synchronize()
         recs.append(dict(step=tr.step, loss=loss, ms=(time.perf_counter() - t0) * 1e3,
                          n_rungs=tr.last_stats["n_rungs"], n_entries=tr.last_stats["n_entries"],
@@ -1589,17 +1616,21 @@ def run_scene_train(guidance, exp_root):
     return counts
 
 
-def small_scene_parity():
-    """Phase 8: one small scene step on the card (kernels) against the same
-    step on the CPU (plain versions): the tiny scene of
-    tests/test_torch_scene_step.py (32^2, two placed 60-splat objects, env
-    and floor at density 0.0002 as after some training: rest-SH, varied
-    opacities, anisotropic and rotated, at full-density footprints), same
-    weights, inputs and draws; a stage-1 guidance step (env trainable) and
-    a stage-3 recon step (every model trainable, against the refine's own
-    pseudo-GT). A fresh env at a larger size is no test: its scale gradient
-    is a residual that a 1e-7 relative nudge of xyz moves by 2-5e-3 on the
-    CPU alone (PERF.md, Findings)."""
+def small_scene_parity(outdoor=False):
+    """Phase 8 (and, with `outdoor`, phase 15f): one small scene step on
+    the card (kernels) against the same step on the CPU (plain versions):
+    the tiny scene of tests/test_torch_scene_step.py (32^2, two placed
+    60-splat objects, env and floor at density 0.0002 as after some
+    training: rest-SH, varied opacities, anisotropic and rotated, at
+    full-density footprints), same weights, inputs and draws; a stage-1
+    guidance step (env trainable) and a stage-3 recon step (every model
+    trainable, against the refine's own pseudo-GT). Outdoor (config #5's
+    method and box, tests/test_torch_scene_outdoor.py): the stage-1 step
+    renders floor + env alone, and the recon step is the floor-only
+    refine's (floor + env from a mirrored Stage3_Outdoor camera, the floor
+    trainable). A fresh env at a larger size is no test: its scale
+    gradient is a residual that a 1e-7 relative nudge of xyz moves by
+    2-5e-3 on the CPU alone (PERF.md, Findings)."""
     from dreamscene_tpu_torch.models.gaussians import create_from_points
     from dreamscene_tpu_torch.models.ply import save_splat_ply
     from dreamscene_tpu_torch.training.scene_trainer import SceneTrainer, scene_step
@@ -1616,8 +1647,9 @@ def small_scene_parity():
             {"id": "b", "params": [{"center": [1.5, -0.5, 0.0], "rotation": [0.0, 0.0, 0.0],
                                     "scale": [1.0] * 3}]}]
     cfg.scene_configs = {"objects": [], "scene": {
-        "sh_degree": 1, "cam_pose_method": "indoor", "scene_text": "a room",
-        "compress_objects": False, "radius": [3.5, 2.5, 5.0], "scene_composition": comp}}
+        "sh_degree": 1, "cam_pose_method": "outdoor" if outdoor else "indoor",
+        "scene_text": "a minecraft world" if outdoor else "a room", "compress_objects": False,
+        "radius": [15, 15, 4] if outdoor else [3.5, 2.5, 5.0], "scene_composition": comp}}
     tr = SceneTrainer(cfg, exp_root=fresh_dir("scene_parity"), device="cpu", env_density=0.0002)
 
     def perturb(p, rng, sd):
@@ -1639,8 +1671,10 @@ def small_scene_parity():
                                  "rotation": 0.3})
         st.active_sh_degree = 1
     cams = tr._stage1_cams(4)
+    # the recon step's camera and the refine's own target
+    cams3 = tr.cams_loader.Stage3_Outdoor("env") if outdoor else cams
     tr.gt_size = 4
-    gt = tr._pseudo_gt_bank(cams[:4], only_env=False)[0]     # the refine's own target
+    gt = tr._pseudo_gt_bank(cams3[:4], only_env=outdoor)[0]
 
     def grad_rel(res, ref):
         """Per trained model and group: relative L2 and max|d| / max|g|."""
@@ -1665,10 +1699,13 @@ def small_scene_parity():
     # than 1e-4 on the CPU itself: its floor and env rotation and scale
     # gradients are residuals of cancelling edge terms that the nudge moves
     # by 1e-3 and more (PERF.md, Findings), so no two devices can agree on them
+    recon = ("floor", True, False) if outdoor else ("all", False, True)
+    tag = "outdoor " if outdoor else ""
     for label, args, every_group in (
-            ("stage-1 env", tr.step_inputs(cams[:2], "env", False, False, 0.5)["args"], True),
-            ("stage-3 recon all", tr.step_inputs(cams[:1], "all", False, True, 1.0,
-                                                 guidance_on=False, gt_images=[gt])["args"],
+            (f"{tag}stage-1 env", tr.step_inputs(cams[:2], "env", outdoor, False, 0.5)["args"],
+             True),
+            (f"{tag}stage-3 recon {recon[0]}",
+             tr.step_inputs(cams3[:1], *recon, 1.0, guidance_on=False, gt_images=[gt])["args"],
              False)):
         res_cpu = scene_step(**args)
         res_gpu = scene_step(**_to(args, torch.device("cuda")))
@@ -1686,6 +1723,285 @@ def small_scene_parity():
         assert math.isclose(loss_g, loss_c, rel_tol=1e-4, abs_tol=1e-6), (loss_g, loss_c)
         assert all(v <= 1e-3 for v in held.values()), held
         assert int(res_cpu["n_entries"]) == int(res_gpu["n_entries"])
+
+
+# --------------------------------------------------- outdoor scene (config #5)
+OUTDOOR_CFG = Path(__file__).resolve().parent / "configs" / "scenes" / "sample_outdoor.yaml"
+OUTDOOR_EXP = "scene_outdoor_generation"        # the config's log.exp_name
+
+
+def outdoor_init_counts(scene_box):
+    """init_env_points / init_floor_points' outdoor point counts at env
+    density 1: ceil(r * 50,000) on the shell, ceil(r * 20,000) on the
+    disk, r the distance from the origin to the scene box's far corner."""
+    sb = np.abs(np.asarray(scene_box, np.float64))
+    r = float(np.sqrt(np.sum(np.maximum(sb[:3], sb[3:]) ** 2)))
+    return r, math.ceil(r * 50000), math.ceil(r * 20000)
+
+
+def state_bytes(st) -> int:
+    """Device bytes of a model: params, Adam moments, aux."""
+    ts = [*st.params.values(), *st.opt.mu.values(), *st.opt.nu.values(), *st.aux.values()]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def outdoor_trainer(guidance, exp_root, overrides=()):
+    from dreamscene_tpu_torch.training.scene_trainer import SceneTrainer
+    from dreamscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(OUTDOOR_CFG), list(overrides))
+    return cfg, SceneTrainer(cfg, guidance=guidance, exp_root=exp_root, device="cuda",
+                             env_density=1.0)
+
+
+def run_outdoor_steps(guidance):
+    """Phases 15a-15c: config #5 (sample_outdoor.yaml as shipped, env
+    density 1.0, DS_FLASH_ATTN=1). 15a: the two objects written as finished
+    PLYs (20K splats each; point-e never runs), object_task, then
+    prepare_train_scene (compress, the two placements, the env shell and
+    floor disk), the census held to the init formula. 15b: 2 + 5 stage-1
+    steps rendering floor + env alone (only_env, as train() runs outdoor
+    stage 1) from _stage1_cams, and 5 stage-2 steps (objects visible,
+    floor trainable) from _stage2_cams at train()'s outdoor ranges; launch
+    counts checked, a profiled stage-1 step, peak memory. 15c: K1-K3 held
+    against their plain versions and timed on a Stage1_Outdoor view (floor
+    + env, from inside the shell looking outward) at 32x16, and on a
+    mirrored (scale -1) Stage2_Outdoor view (every model, the floor near
+    the horizon) at 32x16 and 16x16. Returns the trainer, launch counts,
+    kernel rows by view and errors."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.bench.scenes import binned_inputs
+    from dreamscene_tpu_torch.models.scene import final_combine_all
+
+    t0 = time.perf_counter()
+    cfg, tr = outdoor_trainer(guidance, fresh_dir("outdoor"))
+    write_scene_objects(tr, n_pts=20_000)
+    parts = {}
+    for obj_cfg in tr.scene_objects:
+        timed_call(parts, "object_task (load)", tr.object_task)(obj_cfg)
+    timed_call(parts, "prepare_train_scene", tr.prepare_train_scene)()
+    census = scene_census(tr)
+    for name, st in zip(list(tr.scene.objects) + ["floor", "env"],
+                        tr._states(list(tr.scene.objects))):
+        census[name]["bytes"] = state_bytes(st)
+    r, n_env, n_floor = outdoor_init_counts(tr.scene.scene_box)
+    log(json.dumps({"outdoor_setup": {
+        "wall_s": time.perf_counter() - t0, "parts_s": {k: v[1] for k, v in parts.items()},
+        "scene_box": [float(x) for x in tr.scene.scene_box], "radius_base": r,
+        "init_formula": {"env": n_env, "floor": n_floor}, "models": census,
+        "total_rows": sum(m["capacity"] for m in census.values()),
+        "total_gb": sum(m["bytes"] for m in census.values()) / 1e9}}))
+    assert len(tr.scene.objects) == 2 and tr.cam_pose_method == "outdoor"
+    assert census["env"]["active"] == n_env and census["floor"]["active"] == n_floor, census
+    assert census["env"]["capacity"] == int(n_env * 1.5)
+    assert census["floor"]["capacity"] == int(n_floor * 1.5)
+
+    c, g = tr.guidance_opt.C_batch_size, tr.guidance
+    os.environ["DS_FLASH_ATTN"] = "1"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        tr.step, tr.iters = 0, cfg.sceneOptimizationParams.iterations
+        g.stage_range, g.jump_range = (400, 850), (175, 225)      # MTSD's, as train() finds them
+        cams1 = tr._stage1_cams((N_SCENE_WARM + N_SCENE_TIMED) * c)
+        rec1 = scene_steps(tr, cams1, "env", N_SCENE_WARM + N_SCENE_TIMED, "outdoor",
+                           only_env=True)
+        # train()'s outdoor stage 2: the pool drawn at (350, 800), the steps
+        # run at (350, 750) (the JAX package's train() sets both, in that order)
+        tr.step, tr.iters = 0, max(cfg.sceneOptimizationParams.iterations - 300, 1)
+        g.stage_range, g.jump_range = (350, 800), (150, 200)
+        cams2 = tr._stage2_cams(N_SCENE_TIMED * c)
+        g.stage_range = (350, 750)
+        rec2 = scene_steps(tr, cams2, "floor", N_SCENE_TIMED, "outdoor")
+        counts = dict(kernels.COUNTS)
+        n_steps = len(rec1) + len(rec2)
+        expect = {k: c * n_steps for k in K1_K3}
+        expect.update(k4_expect([x["n_rungs"] for x in rec1 + rec2], 10, n_steps))
+        assert counts == expect, (counts, expect)
+        ms1 = float(np.median([x["ms"] for x in rec1[N_SCENE_WARM:]]))
+        ms2 = float(np.median([x["ms"] for x in rec2]))
+        log(json.dumps({"outdoor_steps": {
+            "stage1_ms_median": ms1, "stage2_ms_median": ms2, "stage1": rec1, "stage2": rec2,
+            "launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "models": scene_census(tr)}}))
+        assert all(x["n_entries"] > 0 for x in rec1 + rec2)
+        cams_p = tr._stage1_cams(c)
+        tr.step, tr.iters = 1, cfg.sceneOptimizationParams.iterations
+        g.stage_range, g.jump_range = (400, 850), (175, 225)
+        profile_step(lambda: tr.scene_train_step(cams_p[:c], "env", only_env=True), ms1,
+                     "outdoor_profile_flash", "scene")
+    finally:
+        os.environ.pop("DS_FLASH_ATTN", None)
+
+    names = list(tr.scene.objects)
+    view1 = cams1[0]
+    view2 = next(cam for cam in cams2 if cam.scale < 0)
+    rows, errs = {}, {k: 0.0 for k in K1_K3}
+    for label, sts, cam, tiles in (
+            ("config #5 stage-1 view (floor + env) 512^2 32x16", tr._states([]), view1,
+             (32, 16)),
+            ("config #5 stage-2 mirrored view 512^2 32x16", tr._states(names), view2, (32, 16)),
+            ("config #5 stage-2 mirrored view 512^2 16x16", tr._states(names), view2, (16, 16))):
+        combined = final_combine_all(sts)
+        capacity = int(tr.cap_ctrl.mult * sum(st.capacity for st in sts)) // 2
+        inp = binned_inputs(combined, cam, *tiles, capacity=capacity,
+                            sh_degree=min(st.active_sh_degree for st in sts))
+        log(f"[kernels] {label}: camera scale {cam.scale}, delta polar {cam.delta_polar:.1f}, "
+            f"{combined.capacity} rows, entry capacity {capacity}, n_dropped "
+            f"{int(inp['binned'].n_dropped)}")
+        assert int(inp["binned"].n_dropped) == 0, label
+        e, rows[label] = check_kernels(label, inp, timing=True)
+        errs = {k: max(errs[k], e[k]) for k in K1_K3}
+        del combined, inp
+    return tr, counts, rows, errs
+
+
+def run_outdoor_train(guidance, exp_root):
+    """Phase 15d: SceneTrainer.train(n_stage3=1, make_videos=True,
+    video_every=3) on phase 15a's scene (config #5), cut as phase 7 cuts
+    config #4: sceneOptimizationParams.iterations=3 (3 stage-1 steps of
+    floor + env, 1 stage-2 step), DS_FLASH_ATTN=1. Covers the only-env
+    videos (after the third stage-1 step and after the stage-2 step), the
+    stage checkpoints, the 80-camera Stage3_Outdoor("env") + Stage2_Outdoor
+    pseudo-GT bank of floor + env and its floor-only recon steps (env and
+    objects bit-equal across stage 3, the floor moving), the final video of
+    every model and scene_final_model.ply reloaded. Returns the trainer and
+    the launch counts."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.models.gaussians import num_active
+    from dreamscene_tpu_torch.models.ply import load_splat_ply
+    from dreamscene_tpu_torch.training import scene_trainer as ST
+
+    cfg, tr = outdoor_trainer(guidance, exp_root, ["sceneOptimizationParams.iterations=3"])
+    parts = {}
+    timed = functools.partial(timed_call, parts)
+    refine = tr.scene_refine_phase
+    moved = {}
+
+    def untrained():
+        return {"env": tr.scene.env, **{n: e.state for n, e in tr.scene.objects.items()}}
+
+    def held_refine(only_env, scene_optim):
+        """The outdoor refine, holding the env and the objects bit-equal."""
+        assert only_env and not scene_optim
+        keep = {n: {f: v.clone() for f, v in st.params.items()} for n, st in untrained().items()}
+        floor0 = tr.scene.floor.params["xyz"].clone()
+        refine(only_env, scene_optim)
+        for n, st in untrained().items():
+            assert all(torch.equal(st.params[f], v) for f, v in keep[n].items()), n
+        moved["floor_xyz_max_abs"] = float((tr.scene.floor.params["xyz"] - floor0).abs().max())
+        assert moved["floor_xyz_max_abs"] > 0
+
+    tr.scene_refine_phase = held_refine
+    for name in ("object_task", "prepare_train_scene", "scene_train_step", "_pseudo_gt_bank",
+                 "scene_refine_phase", "save_ckpt", "scene_video_inference"):
+        setattr(tr, name, timed(name, getattr(tr, name)))
+    save_ply, scene_step = ST.save_splat_ply, ST.scene_step
+    ST.save_splat_ply = timed("final PLY", save_ply)
+    ST.scene_step = timed("scene_step (all stages)", scene_step)
+    os.environ["DS_FLASH_ATTN"] = "1"
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        combined = tr.train(n_stage3=1, make_videos=True, video_every=3)
+    finally:
+        ST.save_splat_ply, ST.scene_step = save_ply, scene_step
+        os.environ.pop("DS_FLASH_ATTN")
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.COUNTS)
+
+    c = tr.guidance_opt.C_batch_size
+    n_stage_steps = parts["scene_train_step"][0]
+    n_recon = parts["scene_step (all stages)"][0] - n_stage_steps
+    n_frames = len(tr.scene_cams_inference)
+    assert tr.scene.stage_n == 3 and n_stage_steps == 4, (tr.scene.stage_n, parts)
+    assert tr.gt_size >= 20 * c and n_recon == tr.gt_size, (tr.gt_size, n_recon)
+    assert parts["_pseudo_gt_bank"][0] == 1 and parts["scene_video_inference"][0] == 3, parts
+    for n in (1, 2, 3):
+        assert (tr.scene_ckpt_path / f"scene_{n}_stage.ckpt.npz").exists()
+    for tag in ("3", "4", "final"):          # the only-env videos after steps 3 and 3 + 1
+        assert glob.glob(str(tr.vis_path / f"video_rgb_scene_{tag}.mp4*")), tag
+    trained_renders = c * n_stage_steps + n_recon
+    assert counts["composite_bwd"] == trained_renders, (counts, trained_renders)
+    assert counts["composite_fwd"] == counts["expand_entries"] == \
+        trained_renders + tr.gt_size + 3 * n_frames, (counts, n_frames)
+    assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES), counts
+    final = tr.scene_ckpt_path / "scene_final_model.ply"
+    n_final = num_active(combined)
+    assert num_active(load_splat_ply(str(final), device="cuda")) == n_final
+    assert all(torch.isfinite(v).all() for v in combined.params.values())
+    log(json.dumps({"outdoor_train": {
+        "wall_s": wall, "parts_s": {k: {"calls": n, "s": sec} for k, (n, sec) in parts.items()},
+        "stage_steps": n_stage_steps, "recon_steps": n_recon, "video_frames": n_frames,
+        "stage3_env_and_objects_bit_equal": True, **moved, "final_active": n_final,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts}}))
+    return tr, counts
+
+
+def video_frames(path: Path) -> int:
+    """Frames in a video that utils/media.write_video wrote (its .npz
+    stand-in without imageio)."""
+    npz = Path(str(path) + ".npz")
+    if npz.exists():
+        with np.load(npz) as z:
+            return int(z["frames"].shape[0])
+    import imageio
+
+    return imageio.v2.get_reader(str(path)).count_frames()
+
+
+def run_outdoor_cli(tr):
+    """Phase 15e: the CLI on the card, as a user runs it, in phase 15d's
+    experiment root: `python3 -m dreamscene_tpu_torch --config
+    configs/scenes/sample_outdoor.yaml --exp-root ROOT only_render=true`
+    renders the walkthrough from the stage-3 checkpoint (as many frames as
+    scene_cams_inference holds, counted here on a camera loader seeded as
+    the CLI's is) and writes no checkpoint; then the same command without
+    only_render resumes at stage 3, trains nothing and rewrites
+    scene_final_model.ply."""
+    import types
+
+    from dreamscene_tpu_torch.cameras.scene_sampling import SceneCameraLoader
+    from dreamscene_tpu_torch.training.scene_trainer import SceneTrainer
+    from dreamscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(OUTDOOR_CFG), [])
+    loader = SceneCameraLoader(np.random.default_rng(cfg.seed), cfg.sceneGenerateCamParams,
+                               tr.scene.scene_box, tr.scene.objects_args, "outdoor")
+    for oa in tr.scene.objects_args:             # train()'s draws before the walkthrough
+        loader.Circle(affine_params=oa.affine, circle_size=24)
+    loader.Circle(circle_size=24)
+    walk = SceneTrainer.scene_only_render(types.SimpleNamespace(
+        cams_loader=loader, cam_pose_method="outdoor", scene_video_inference=lambda tag: None))
+    exp_root = tr.exp_path.parent
+    ckpts, vis = tr.scene_ckpt_path, tr.vis_path
+    final = ckpts / "scene_final_model.ply"
+    stages = sorted(ckpts.glob("scene_*_stage.ckpt.npz"))
+    assert len(stages) == 3
+
+    def stamps():
+        return {p.name: p.stat().st_mtime_ns for p in stages}
+
+    before, final_t = stamps(), final.stat().st_mtime_ns
+    cmd = [sys.executable, "-m", "dreamscene_tpu_torch", "--config",
+           str(OUTDOOR_CFG.relative_to(OUTDOOR_CFG.parents[2])), "--exp-root", str(exp_root)]
+    out = {}
+    for label, extra in (("only_render", ["only_render=true"]), ("resume", [])):
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd + extra, cwd=OUTDOOR_CFG.parents[2], capture_output=True,
+                             text=True, timeout=900)
+        out[label] = {"wall_s": time.perf_counter() - t0, "returncode": run.returncode}
+        assert run.returncode == 0, (label, run.stderr[-4000:])
+        assert "resumed scene at stage 3" in run.stderr, (label, run.stderr[-4000:])
+        assert not any(f"Stage-{n}" in run.stderr for n in (1, 2, 3)), (label, run.stderr[-4000:])
+        assert stamps() == before, label
+    frames = {kind: video_frames(vis / f"video_{kind}_scene_render.mp4")
+              for kind in ("rgb", "depth")}
+    assert frames == {"rgb": len(walk), "depth": len(walk)}, (frames, len(walk))
+    assert final.stat().st_mtime_ns > final_t
+    out["only_render"]["walkthrough_frames"] = frames["rgb"]
+    log(json.dumps({"outdoor_cli": out}))
 
 
 # ------------------------------------------------------------ mesh (parallel/)
@@ -2525,8 +2841,19 @@ def main():
     torch.cuda.empty_cache()
     by_path["scene_train"] = run_scene_train(guidance, exp_root)
     small_scene_parity()
+    # phase 15: config #5 on phase 6's guidance stack
+    tr, by_path["outdoor_steps"], outdoor_rows, e = run_outdoor_steps(guidance)
+    errs.update({k: max(errs[k], v) for k, v in e.items()})
+    exp_root = str(tr.exp_path.parent)
+    del tr
+    torch.cuda.empty_cache()
+    tr, by_path["outdoor_train"] = run_outdoor_train(guidance, exp_root)
     del guidance
     torch.cuda.empty_cache()
+    run_outdoor_cli(tr)
+    del tr
+    torch.cuda.empty_cache()
+    small_scene_parity(outdoor=True)
     run_loader()
     band_rows, e = run_band_kernels()
     errs.update({k: max(errs[k], v) for k, v in e.items()})
@@ -2553,7 +2880,8 @@ def main():
                                       ("config #4 single cam 1920x1080 32x16",
                                        single_rows["32x16"]),
                                       ("config #4 single cam 1920x1080 16x16",
-                                       single_rows["16x16"]))}
+                                       single_rows["16x16"]),
+                                      *outdoor_rows.items())}
         table.append({"name": k, "route": "cuda", "variant": r.get("variant", "scalar"),
                       "source": src, "replaces": rep,
                       "launches": sum(launches.values()), "launches_by_path": launches,

@@ -100,15 +100,9 @@ def rel_l2(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-@pytest.fixture(scope="module")
-def jax_trainer(tmp_path_factory):
-    root = tmp_path_factory.mktemp("jax")
-    tr = jst.SceneTrainer(tiny_scene_cfg(JCfg()), exp_root=str(root), interpret=True,
-                          env_density=ENV_DENSITY)
-    write_objects(tr.ckpt_path)
-    tr.prepare_train_scene()
-    # degree 1 active everywhere; rest-SH, varied opacities, scales and
-    # rotations on env/floor
+def make_trained_looking(tr):
+    """Degree 1 active on the JAX trainer's env and floor, with rest-SH and
+    varied opacities, scales and rotations."""
     rng = np.random.RandomState(3)
     for name in ("env", "floor"):
         st = getattr(tr.scene, name)
@@ -129,6 +123,16 @@ def jax_trainer(tmp_path_factory):
             rotation=jnp.asarray(np.asarray(p.rotation)
                                  + 0.3 * rng.randn(*p.rotation.shape).astype(np.float32)))
         setattr(tr.scene, name, dataclasses.replace(st, params=p, active_sh_degree=1))
+
+
+@pytest.fixture(scope="module")
+def jax_trainer(tmp_path_factory):
+    root = tmp_path_factory.mktemp("jax")
+    tr = jst.SceneTrainer(tiny_scene_cfg(JCfg()), exp_root=str(root), interpret=True,
+                          env_density=ENV_DENSITY)
+    write_objects(tr.ckpt_path)
+    tr.prepare_train_scene()
+    make_trained_looking(tr)
     return tr
 
 
@@ -156,16 +160,27 @@ def test_scene_step_matches_jax(jax_trainer, cn_guidance, stage):
 def _scene_step_matches_jax(jtr, stage, use_cn):
     guidance_on = stage.startswith("stage 1")
     names = list(jtr.scene.objects)
-    states = jtr._states(names)
     trainable = (tuple([False] * len(names) + [False, True]) if guidance_on
                  else tuple([True] * (len(names) + 2)))
+    cams = jtr.cams_loader.Stage1_Indoor(size=8)[:2 if guidance_on else 1]
+    hold_scene_step(jtr, names, trainable, cams, guidance_on, scene_optim=not guidance_on,
+                    ladder=[230, 470], use_cn=use_cn)
+
+
+def hold_scene_step(jtr, names, trainable, cams, guidance_on, scene_optim, ladder,
+                    use_cn=False):
+    """One step of the JAX trainer's jitted `_scene_step_fn` on the visible
+    objects `names` (then floor, env) against the port's `scene_step` on
+    the same state and inputs, held at the tolerances above. The lrs are the
+    trainer's: the objects' from fineSceneOptimizationParams with
+    `scene_optim`, the rest from the stage's parameters."""
+    states = jtr._states(names)
     optp = (jtr.cfg.sceneOptimizationParams if guidance_on
             else jtr.cfg.reconSceneOptimizationParams)
-    cams = jtr.cams_loader.Stage1_Indoor(size=8)[:2 if guidance_on else 1]
     c_batch = len(cams)
     rng = np.random.default_rng(7)
     text_emb, _ = jot.assemble_text_embeddings(jtr.embeddings, cams)
-    ladder = np.asarray([230, 470], np.int32)
+    ladder = np.asarray(ladder, np.int32)
     lat_shape = jtr.guidance.latent_shape(c_batch, 32, 32)
     noise = rng.standard_normal(lat_shape).astype(np.float32)
     vae_key = jax.random.key(3)
@@ -173,7 +188,7 @@ def _scene_step_matches_jax(jtr, stage, use_cn):
     bg = np.asarray([[0.2, 0.3, 0.4], [0.0, 0.0, 0.0]][:c_batch], np.float32)
     gt = rng.uniform(0, 1, (c_batch, 3, 32, 32)).astype(np.float32)
     fine = jtr.cfg.fineSceneOptimizationParams
-    lrs_list = [j_group_lrs(fine if (i < len(names) and not guidance_on) else optp,
+    lrs_list = [j_group_lrs(fine if (i < len(names) and scene_optim) else optp,
                             s.spatial_lr_scale, 1) for i, s in enumerate(states)]
     flip, as_latent = guidance_on, False
     capacities = tuple(s.capacity for s in states)
@@ -275,34 +290,7 @@ def host_sampling_matches(tmp_path, monkeypatch, with_cn: bool, n_stage1: int = 
     jtr.prepare_train_scene()
     ttr.prepare_train_scene()
     seen_j, seen_t = [], []
-
-    def j_recorder(n_rungs, n_models, capacities, degrees, trainable, guidance_on, c_batch,
-                   use_cn=False, cap_mult=4):
-        def step(params_list, opt_list, aux_list, cam_stack, bg_stack, text_emb, ladder_ts,
-                 noise, vae_key, flip, as_latent, lrs_list, gt, mod_params):
-            seen_j.append(dict(
-                view=np.asarray(cam_stack["view"]), bg=np.asarray(bg_stack),
-                text=np.asarray(text_emb), ladder=np.asarray(ladder_ts).tolist(),
-                flip=bool(flip), as_latent=bool(as_latent), trainable=trainable,
-                lrs=[{k: np.float32(v) for k, v in lrs.items()} for lrs in lrs_list],
-                capacity=int(cap_mult * sum(capacities)) // 2, use_cn=use_cn))
-            z = jnp.zeros((), jnp.int32)
-            return params_list, opt_list, aux_list, jnp.zeros(()), z, z
-        return step
-
-    def t_recorder(states, trainable, mods, cams, bg_rows, text_emb, ladder, noise, vae_eps,
-                   flip, as_latent, lrs_list, gt_images=None, **kw):
-        seen_t.append(dict(
-            view=np.stack([c["viewmatrix"].numpy() for c in cams]),
-            bg=np.asarray(bg_rows, np.float32), text=text_emb.numpy(), ladder=list(ladder),
-            flip=bool(flip), as_latent=bool(as_latent), trainable=trainable,
-            lrs=[{k: np.float32(v) for k, v in lrs.items()} for lrs in lrs_list],
-            capacity=kw["capacity"], use_cn=kw["use_cn"]))
-        z = torch.zeros((), dtype=torch.int32)
-        return dict(params=[s.params for s in states], opt=[s.opt for s in states],
-                    aux=[s.aux for s in states], loss=torch.zeros(()), n_entries=z,
-                    n_dropped=z)
-
+    j_recorder, t_recorder = step_recorders(jtr, ttr, seen_j, seen_t)
     jtr._scene_step_fn = j_recorder
     monkeypatch.setattr(tst, "scene_step", t_recorder)
     for tr in (jtr, ttr):
@@ -314,12 +302,56 @@ def host_sampling_matches(tmp_path, monkeypatch, with_cn: bool, n_stage1: int = 
         tr._run_scene_step(cams[:1], "all", False, True, 1.0, guidance_on=False,
                            gt_images=[gt], optp=tr.cfg.reconSceneOptimizationParams)
     assert len(seen_j) == len(seen_t) == n_stage1 + 1
-    for want, got in zip(seen_j, seen_t):
-        np.testing.assert_array_equal(got["view"], want["view"])
-        np.testing.assert_array_equal(got["bg"], want["bg"])
-        np.testing.assert_array_equal(got["text"], want["text"])
-        for k in ("ladder", "use_cn", "flip", "as_latent", "trainable", "lrs", "capacity"):
-            assert got[k] == want[k], k
+    assert_same_steps(seen_j, seen_t)
     assert seen_t[0]["trainable"] == (False, False, False, True)
     assert seen_t[-1]["trainable"] == (True,) * 4
     return [r["use_cn"] for r in seen_t]
+
+
+def step_recorders(jtr, ttr, seen_j, seen_t):
+    """Stand-ins for the JAX trainer's `_scene_step_fn` and the port's
+    `scene_step` that record what each step is handed (views, background
+    and prompt rows, ladder, flip, as_latent, trainable mask, lrs, entry
+    capacity, ControlNet gate, model count, the guidance's stage and jump
+    ranges) into `seen_j` / `seen_t` and return the states unchanged."""
+    def j_recorder(n_rungs, n_models, capacities, degrees, trainable, guidance_on, c_batch,
+                   use_cn=False, cap_mult=4):
+        def step(params_list, opt_list, aux_list, cam_stack, bg_stack, text_emb, ladder_ts,
+                 noise, vae_key, flip, as_latent, lrs_list, gt, mod_params):
+            seen_j.append(dict(
+                view=np.asarray(cam_stack["view"]), bg=np.asarray(bg_stack),
+                text=np.asarray(text_emb), ladder=np.asarray(ladder_ts).tolist(),
+                flip=bool(flip), as_latent=bool(as_latent), trainable=trainable,
+                lrs=[{k: np.float32(v) for k, v in lrs.items()} for lrs in lrs_list],
+                capacity=int(cap_mult * sum(capacities)) // 2, use_cn=use_cn,
+                n_models=n_models, ranges=(jtr.guidance.stage_range, jtr.guidance.jump_range)))
+            z = jnp.zeros((), jnp.int32)
+            return params_list, opt_list, aux_list, jnp.zeros(()), z, z
+        return step
+
+    def t_recorder(states, trainable, mods, cams, bg_rows, text_emb, ladder, noise, vae_eps,
+                   flip, as_latent, lrs_list, gt_images=None, **kw):
+        seen_t.append(dict(
+            view=np.stack([c["viewmatrix"].numpy() for c in cams]),
+            bg=np.asarray(bg_rows, np.float32), text=text_emb.numpy(), ladder=list(ladder),
+            flip=bool(flip), as_latent=bool(as_latent), trainable=trainable,
+            lrs=[{k: np.float32(v) for k, v in lrs.items()} for lrs in lrs_list],
+            capacity=kw["capacity"], use_cn=kw["use_cn"], n_models=len(states),
+            ranges=(ttr.guidance.stage_range, ttr.guidance.jump_range)))
+        z = torch.zeros((), dtype=torch.int32)
+        return dict(params=[s.params for s in states], opt=[s.opt for s in states],
+                    aux=[s.aux for s in states], loss=torch.zeros(()), n_entries=z,
+                    n_dropped=z)
+
+    return j_recorder, t_recorder
+
+
+def assert_same_steps(seen_j, seen_t):
+    """Every recorded step of the two trainers handed the same inputs."""
+    for i, (want, got) in enumerate(zip(seen_j, seen_t, strict=True)):
+        np.testing.assert_array_equal(got["view"], want["view"])
+        np.testing.assert_array_equal(got["bg"], want["bg"])
+        np.testing.assert_array_equal(got["text"], want["text"])
+        for k in ("ladder", "use_cn", "flip", "as_latent", "trainable", "lrs", "capacity",
+                  "n_models", "ranges"):
+            assert got[k] == want[k], (i, k)
