@@ -116,9 +116,7 @@ Phases (any failure exits non-zero; nothing is caught):
      rendered forward + backward at a capacity the capacity controller
      sizes (drops printed, launches checked), K1-K3 held against their
      plain versions and timed at 32x16 (4,080 tiles) and 16x16 (8,160
-     tiles, the order kernel above 48 KB of shared memory, its time
-     printed: K1 less the same launch without it), the live tiles of the
-     partial last tile row;
+     tiles), the live tiles of the partial last tile row;
      14c. (after phase 9) mtsd.denoise_ladder on phase 3's stack (64x64
      latents, batch 1, 3 rungs, DS_FLASH_ATTN=1): K4 forward launches
      checked, the walk timed, K4 at the walk's shapes [3,5,4096,64] and
@@ -153,9 +151,32 @@ Phases (any failure exits non-zero; nothing is caught):
      against its cameras, no checkpoint written), then without only_render
      (resumes at stage 3, trains nothing);
      15f. phase 8 on the outdoor tiny scene: a stage-1 only-env step and a
-     stage-3 floor recon step, card against CPU.
+     stage-3 floor recon step, card against CPU;
+ 16. (right after phase 2) K1 above the tile count one CTA's shared memory
+     could rank (19,369): phase 2's 50K-splat scene seen at 3840x2160 and
+     2560x2560 with 16x16 tiles (32,400 and 25,600 tiles) at a capacity
+     sized to its raw entries, K1-K3 held against their plain versions and
+     timed; one render forward + backward at 3840x2160, 16x16, launches
+     checked, the image and gradients finite;
+ 17. (after 16) bench/throughput.py, BASELINE.json's primary metric: its
+     300K-splat scene and orbit camera at 512^2, K1-K3 held against their
+     plain versions at the headline capacity (32x16, chunk 512), then its
+     main() in this process (tracked capacity, 10 timed forward + backward
+     steps, device busy ms, the 4N companion at 16x16 / chunk 384), its
+     JSON line printed and its launches counted;
+ 18. (after 17) bench/soak_object.py and bench/soak_scene.py at cut lengths:
+     the object run (its config, 360 FPS steps, 2 recon iterations,
+     videos) crosses three densifications, an opacity reset and 60 steps
+     after the last; the scene run (a 20-step object task, stage 1 of 280
+     steps, stage 2 of 1, 1 stage-3 iteration, env density 0.08) crosses
+     two stage-1 densifications and 80 steps after the last, then resumes
+     at stage 3 and trains nothing; their JSON lines printed and checked
+     (events, drops, checkpoints). The full-length runs go through
+     `python3 -m dreamscene_tpu_torch.bench.soak_object` / `soak_scene`.
+Every phase prints `[time] <phase> done at <s> s` (seconds since start).
 The line before the last is the kernel table as JSON (launches by path;
-K1-K3 also at the scene, band, single-camera and outdoor shapes); the last
+K1-K3 also at the scene, band, single-camera, outdoor, 4K, 2560^2 and
+bench shapes, K1 with its order kernel's time); the last
 line is
 {"ok": true, "device": {...}}.
 """
@@ -201,6 +222,8 @@ SOURCES = {
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
 }
 K1_K3 = ("expand_entries", "composite_fwd", "composite_bwd")
+# K1's order kernel alone, and K1 in index order
+K1_ORDER_KEYS = ("order_kernel_ms", "index_order_ms")
 K4 = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 BUILD = Path(__file__).resolve().parent / "build"
 # K4's shapes on the main path at config #2 width ([b, h, n, d], bf16):
@@ -221,6 +244,13 @@ K4_ROW = {"flash_fwd": "unet 64x64 self-attn",
 
 def log(*a):
     print(*a, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def mark(phase):
+    log(f"[time] {phase} done at {time.perf_counter() - T_START:.1f} s")
 
 
 def fresh_dir(tag: str) -> str:
@@ -294,6 +324,7 @@ def pair_count(inp):
 
 def check_kernels(label, inp, timing):
     """Phase 2 on one scene. Returns a dict of rows when `timing`."""
+    from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.bench.scenes import tile_stats
     from dreamscene_tpu_torch.ops import composite as C
     from dreamscene_tpu_torch.ops import expand as E
@@ -389,9 +420,21 @@ def check_kernels(label, inp, timing):
         ops=pairs * BWD_OPS_PER_PAIR)
     for r in rows.values():
         r["bound_ms"], r["bound_by"] = bound(r["ops"], r["bytes"], torch.float32)
-    log(f"[kernels] full-width times: " + json.dumps(
+    # K1's first kernel, the tile order, timed alone; and K1 less the same
+    # launch with a null tile-order pointer (no order kernel, the tiles
+    # dispatched in index order: the launcher's bench mode), which also holds
+    # what the dispatch order changes in the compositing kernel's time
+    lib, no_order = kernels.lib(), k1[0][:13] + (None,) + k1[0][14:]
+    order_args = (meta[0].data_ptr(), meta[2].data_ptr(), meta[3].data_ptr(), n_chunks,
+                  inp["n_tiles"], k1[1][-3].data_ptr(), kernels.stream_ptr(rt.device))
+    kernels.check(lib.ds_tile_order(*order_args), "tile_order")
+    kernels.check(lib.ds_composite_fwd(*no_order), "composite_fwd")
+    r1 = rows["composite_fwd"]
+    r1["order_kernel_ms"] = cuda_time(lambda: lib.ds_tile_order(*order_args), 20)
+    r1["index_order_ms"] = cuda_time(lambda: lib.ds_composite_fwd(*no_order), 20)
+    log(f"[kernels] {label} times: " + json.dumps(
         {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms", "launch_host_ms",
-                                  "call_host_ms") if kk in v}
+                                  "call_host_ms", *K1_ORDER_KEYS) if kk in v}
          for k, v in rows.items()}))
     return errs, rows
 
@@ -2085,16 +2128,9 @@ def busy_ms(step_fn) -> float:
     """Summed spans of the kernels one `step_fn()` launches (torch.profiler):
     the device busy time of a process alone on the card; for a rank
     sharing it, spans that include the other ranks' time slices."""
-    from torch.profiler import ProfilerActivity, profile
+    from dreamscene_tpu_torch.utils.profiling import device_busy_ms
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        step_fn()
-        torch.cuda.synchronize()
-    return sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("fps.", "scene.")) and e.name != "controlnet")
+    return device_busy_ms(step_fn, skip=("fps.", "scene.", "controlnet"))
 
 
 def mesh_step(fn, rungs=None) -> dict:
@@ -2527,15 +2563,14 @@ def run_single_cam(tr):
     first object's placement: the frame rendered forward + backward through
     scene_render at an entry capacity the capacity controller sizes (launch
     counts checked), then K1-K3 held against their plain versions and
-    timed at 32x16 and 16x16 tiles (chunk 512), the live tiles of the
-    partial last tile row (1080 = 67 x 16 + 8) and the order kernel's
-    time. Returns (launch counts of the render, rows by tiling,
+    timed at 32x16 and 16x16 tiles (chunk 512, the order kernel's time
+    among K1's), and the live tiles of the partial last tile row (1080 =
+    67 x 16 + 8). Returns (launch counts of the render, rows by tiling,
     errors)."""
     from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.bench.scenes import binned_inputs
     from dreamscene_tpu_torch.cameras.sampling import load_single_cam
     from dreamscene_tpu_torch.models.scene import final_combine_all
-    from dreamscene_tpu_torch.ops import composite as C
     from dreamscene_tpu_torch.rendering import scene_render
     from dreamscene_tpu_torch.training.capacity import CapacityController
 
@@ -2596,30 +2631,17 @@ def run_single_cam(tr):
         live = torch.zeros(n_tiles + 1, dtype=torch.long, device=ct.device)
         live.index_add_(0, ct[:n_u].long(), (hi[:n_u] - lo[:n_u]).clamp_min(0).long())
         last = live[n_tiles - tiles_x:n_tiles]
-        # the order kernel's time: K1 less the same launch with a null
-        # tile-order pointer (no order kernel, the tiles dispatched in index
-        # order: the launcher's bench mode), both by CUDA events; it holds any
-        # change the dispatch order makes to the compositing kernel's time
-        k1 = C.prepare_forward(inp["records_t"], *inp["meta"][:4], n_tiles, tiles_x, tw, th)
-        lib, no_order = kernels.lib(), k1[0][:13] + (None,) + k1[0][14:]
-        kernels.check(lib.ds_composite_fwd(*no_order), "composite_fwd")
-        index_order_ms = cuda_time(lambda: lib.ds_composite_fwd(*no_order), 20)
-        order_ms = r["composite_fwd"]["ms"] - index_order_ms
-        smem = (n_tiles + 1) * 12
         summary = {"tiles": n_tiles, "tiles_y": n_tiles // tiles_x, "capacity": capacity,
                    "n_entries": int(b.n_entries), "n_dropped": int(b.n_dropped),
                    "last_row_pixel_rows": 1080 - (n_tiles // tiles_x - 1) * th,
                    "last_row_live_tiles": int((last > 0).sum()), "last_row_tiles": tiles_x,
                    "last_row_entries": int(last.sum()),
-                   "order_kernel_smem_bytes": smem, "order_kernel_opt_in": smem > 48 * 1024,
-                   "k1_ms": r["composite_fwd"]["ms"], "k1_index_order_ms": index_order_ms,
-                   "order_kernel_ms": order_ms}
+                   "k1_ms": r["composite_fwd"]["ms"],
+                   **{k: r["composite_fwd"][k] for k in K1_ORDER_KEYS}}
         log(f"[kernels] {label}: " + json.dumps(summary))
         assert summary["last_row_live_tiles"] > 0, summary
-        r["composite_fwd"]["order_kernel_ms"] = order_ms
-        r["composite_fwd"]["index_order_ms"] = index_order_ms
         rows[f"{tw}x{th}"] = r
-        del inp, k1
+        del inp
     return counts, rows, errs
 
 
@@ -2773,18 +2795,164 @@ def run_losses():
     assert all(e <= 1e-5 for e in errs.values()), errs
 
 
+# ------------------------------------------------------------ phases 16-18
+LARGE_VIEWS = ((3840, 2160), (2560, 2560))
+# the most tiles whose (n + 1) x 12-byte order table fits one CTA's 232,448
+# bytes of shared memory: phase 16's views lie past it
+ONE_CTA_ORDER_TILES = 19_369
+SOAK_OBJECT_CUT = dict(iters=360, recon_iters=2)
+SOAK_SCENE_CUT = dict(stage1=280, obj_iters=20)
+
+
+def run_large_views():
+    """Phase 16: phase 2's 50K-splat scene (make_scene) seen at 3840x2160
+    and 2560x2560 with 16x16 tiles, at an entry capacity of the view's raw
+    entries times the capacity controller's pad (no drops):
+    K1-K3 held against their plain versions and timed; then one render
+    forward + backward at 3840x2160, 16x16 (launches checked, image and
+    xyz gradient finite). Returns (launch counts of the render, rows by
+    view, errors)."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.bench.scenes import binned_inputs
+    from dreamscene_tpu_torch.bench.throughput import camera_tensors
+    from dreamscene_tpu_torch.ops.rasterizer import render
+    from dreamscene_tpu_torch.training.capacity import CapacityController
+
+    rows, errs, counts = {}, {k: 0.0 for k in K1_K3}, None
+    for w, h in LARGE_VIEWS:
+        st, cam = make_scene(50_000, w, h, seed=50_000)
+        probe = binned_inputs(st, cam, 16, 16, capacity=CapacityController.HARD_CAP)
+        raw = int(probe["binned"].n_entries) + int(probe["binned"].n_dropped)
+        del probe
+        # raw x the controller's pad, above its 16x cap at this view
+        capacity = min(-(-int(raw * CapacityController.pad) // 1024) * 1024,
+                       CapacityController.HARD_CAP)
+        inp = binned_inputs(st, cam, 16, 16, capacity=capacity)
+        label = f"50K object {w}x{h} 16x16"
+        assert inp["n_tiles"] > ONE_CTA_ORDER_TILES, (label, inp["n_tiles"])
+        assert int(inp["binned"].n_dropped) == 0, label
+        e, r = check_kernels(label, inp, timing=True)
+        errs = {k: max(errs[k], e[k]) for k in K1_K3}
+        log(f"[kernels] {label}: " + json.dumps({
+            "tiles": inp["n_tiles"], "raw_entries": raw, "capacity": capacity,
+            "n_entries": int(inp["binned"].n_entries),
+            "k1_ms": r["composite_fwd"]["ms"],
+            **{k: r["composite_fwd"][k] for k in K1_ORDER_KEYS}}))
+        rows[f"{w}x{h}"] = r
+        del inp
+        if (w, h) != LARGE_VIEWS[0]:
+            continue
+
+        def fwd_bwd():
+            xyz = st.get_xyz.detach().requires_grad_(True)
+            out = render(xyz, st.get_scaling, st.get_rotation, st.get_opacity[:, 0],
+                         st.get_features, **camera_tensors(cam, "cuda"),
+                         bg=torch.zeros(3, device="cuda"), sh_degree=2, capacity=capacity,
+                         valid_mask=st.aux["active"], tile_w=16, tile_h=16)
+            (out["image"].mean() + 0.1 * out["depth"].mean()).backward()
+            return out, xyz.grad
+
+        fwd_bwd()
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out, grad = fwd_bwd()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(kernels.COUNTS)
+        assert all(counts[k] == 1 for k in K1_K3), counts
+        assert tuple(out["image"].shape) == (3, h, w) and torch.isfinite(out["image"]).all()
+        assert int(out["n_dropped"]) == 0
+        assert torch.isfinite(grad).all() and float(grad.abs().max()) > 0
+        log(json.dumps({"large_view_render": {
+            "view": [w, h], "tile": [16, 16], "capacity": capacity,
+            "n_entries": int(out["n_entries"]), "ms_fwd_bwd": ms, "launches": counts}}))
+    return counts, rows, errs
+
+
+def run_bench():
+    """Phase 17: K1-K3 at bench/throughput.py's scene, view and headline
+    capacity against their plain versions, then its main() (the JSON line).
+    Returns (its launch counts, kernel rows, errors, its result)."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.bench import throughput as B
+    from dreamscene_tpu_torch.bench.scenes import binned_splats
+    from dreamscene_tpu_torch.ops.binning import DEFAULT_TILE_H, DEFAULT_TILE_W
+
+    params = {k: torch.as_tensor(v, device="cuda")
+              for k, v in B.build_scene(B.N_GAUSSIANS).items()}
+    cam = B.camera()
+    cap, raw = B.tracked_capacity(params, B.camera_tensors(cam, "cuda"))
+    inp = binned_splats(*(params[k] for k in B.PARAMS), cam, DEFAULT_TILE_W, DEFAULT_TILE_H,
+                        chunk=B.CHUNK, sh_degree=B.SH_DEGREE, capacity=cap)
+    assert int(inp["binned"].n_dropped) == 0
+    label = f"bench 300K 512^2 {DEFAULT_TILE_W}x{DEFAULT_TILE_H}"
+    errs, rows = check_kernels(label, inp, timing=True)
+    del inp, params
+    torch.cuda.empty_cache()
+    kernels.reset_counts()
+    result = B.main()
+    counts = dict(kernels.COUNTS)
+    assert result["entries_dropped"] == 0, result
+    assert (result["capacity"], result["raw_entries"]) == (cap, raw), (result, cap, raw)
+    # the probe forward, then warm-up + ITERS + the profiled step, twice
+    # with the companion; K2 runs in the backward only
+    legs = 2 if "cap4_pixels_per_s" in result else 1
+    fwd = 1 + (1 + B.ITERS) * legs + 1
+    assert (counts["expand_entries"], counts["composite_fwd"], counts["composite_bwd"]) == \
+        (fwd, fwd, fwd - 1), counts
+    return counts, rows, errs, result
+
+
+def run_soaks():
+    """Phase 18: the two soak twins at cut lengths (SOAK_OBJECT_CUT,
+    SOAK_SCENE_CUT), each in a fresh directory under build/; their JSON
+    lines printed and held to what their configs imply. Returns their
+    launch counts."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.bench import soak_object, soak_scene
+
+    by_path = {}
+    kernels.reset_counts()
+    obj = soak_object.run(soak_object.build_cfg(**SOAK_OBJECT_CUT),
+                          exp_root=fresh_dir("soak_object"))
+    by_path["object_soak"] = dict(kernels.COUNTS)
+    log(json.dumps({"soak_object_cut": obj}))
+    iters = SOAK_OBJECT_CUT["iters"]
+    assert obj["event_steps"]["densify"] == list(range(100, iters, 100)), obj["event_steps"]
+    assert obj["event_steps"]["opacity_reset"] == list(range(300, iters, 300)), \
+        obj["event_steps"]
+    assert obj["steps_reported"] == iters and obj["recon_steps"] > 0
+    assert obj["n_splats_final"] > 0 and all(np.isfinite(obj["xyz_extent"]))
+    assert len(obj["videos"]) == 2, obj["videos"]
+
+    kernels.reset_counts()
+    scene = soak_scene.run(soak_scene.build_cfg(**SOAK_SCENE_CUT), n_stage3=1,
+                           exp_root=fresh_dir("soak_scene"))
+    by_path["scene_soak"] = dict(kernels.COUNTS)
+    log(json.dumps({"soak_scene_cut": scene}))
+    stage1 = SOAK_SCENE_CUT["stage1"]
+    stage1_densify = [e for e in scene["event_steps"]["densify"] if str(e).startswith("stage1")]
+    assert stage1_densify == [f"stage1:{s}" for s in range(100, stage1, 100)], scene["event_steps"]
+    assert scene["resume_stage_n"] == 3 and scene["resume_scene_steps"] == 0, scene
+    assert scene["ckpts"] == ["scene_1_stage.ckpt.npz", "scene_2_stage.ckpt.npz",
+                              "scene_3_stage.ckpt.npz", "scene_final_model.ply"], scene["ckpts"]
+    assert scene["n_combined"] > 0
+    for path, c in by_path.items():
+        assert all(c[k] > 0 for k in K1_K3), (path, c)
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.bench.scenes import binned_inputs
+    from dreamscene_tpu_torch.bench.throughput import smi_line
     from dreamscene_tpu_torch.models.gaussians import KNN_FLAGS, build_knn
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
-    log(smi)
+    log(smi_line())
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
     t_build = kernels.build(force=True, verbose=True)
     kernels.lib()
@@ -2809,15 +2977,29 @@ def main():
         e, r = check_kernels(label, inp, timing)
         errs.update({k: max(errs[k], v) for k, v in e.items()})
         rows = r or rows
+    del st, inp
+    mark("phase 2")
+    by_path = {}
+    by_path["large_view_render"], large_rows, e = run_large_views()
+    errs.update({k: max(errs[k], v) for k, v in e.items()})
+    mark("phase 16")
+    by_path["bench_throughput"], bench_rows, e, _ = run_bench()
+    errs.update({k: max(errs[k], v) for k, v in e.items()})
+    torch.cuda.empty_cache()
+    mark("phase 17")
+    by_path.update(run_soaks())
+    torch.cuda.empty_cache()
+    mark("phase 18")
     for k in K4:
         r = k4[K4_ROW[k]]
         rows[k] = dict(ms=r["ms"][k], variant=r["variant"][k], plain_ms=r["plain_ms"][k],
                        library_ms=r["library_ms"][k],
                        bound_ms=r["bound"][k][0], bound_by=r["bound"][k][1])
 
-    by_path = {}
     by_path["object_steps"], tr = run_slice()
+    mark("phase 3")
     by_path["controlnet_steps"], cn = run_controlnet_steps(tr)
+    mark("phase 9")
     by_path["traced_fps_step"] = run_trace(tr)
     by_path["denoise_walk"], k4_walk = run_denoise(tr.guidance)
     for label, r in k4_walk.items():
@@ -2825,42 +3007,59 @@ def main():
         errs.update({k: max(errs[k], v) for k, v in r["errs"].items()})
     del tr
     torch.cuda.empty_cache()
+    mark("phases 14c-14d")
     by_path["object_train"] = run_train()
+    mark("phases 3b and 12")
     small_step_parity()
     small_step_parity(controlnet=True)
+    mark("phases 4 and 10")
     by_path["composition_render"], comp_rows, e = run_composition()
     errs.update({k: max(errs[k], v) for k, v in e.items()})
+    mark("phase 5")
     tr, gates, scene_rows, scene_band_rows, e = run_scene_steps(cn)
     errs.update({k: max(errs[k], v) for k, v in e.items()})
     by_path["scene_steps"] = {k: gates["unset"][k] + gates["set"][k] for k in kernels.KERNEL_NAMES}
     by_path["controlnet_scene_steps"] = {k: gates["controlnet"][k] for k in kernels.KERNEL_NAMES}
+    mark("phases 6 and 9b")
     by_path["single_cam_render"], single_rows, e = run_single_cam(tr)
     errs.update({k: max(errs[k], v) for k, v in e.items()})
+    mark("phase 14b")
     guidance, exp_root = tr.guidance, str(tr.exp_path.parent)
     del tr, cn
     torch.cuda.empty_cache()
     by_path["scene_train"] = run_scene_train(guidance, exp_root)
+    mark("phase 7")
     small_scene_parity()
+    mark("phase 8")
     # phase 15: config #5 on phase 6's guidance stack
     tr, by_path["outdoor_steps"], outdoor_rows, e = run_outdoor_steps(guidance)
     errs.update({k: max(errs[k], v) for k, v in e.items()})
     exp_root = str(tr.exp_path.parent)
     del tr
     torch.cuda.empty_cache()
+    mark("phases 15a-15c")
     tr, by_path["outdoor_train"] = run_outdoor_train(guidance, exp_root)
     del guidance
     torch.cuda.empty_cache()
+    mark("phase 15d")
     run_outdoor_cli(tr)
     del tr
     torch.cuda.empty_cache()
+    mark("phase 15e")
     small_scene_parity(outdoor=True)
+    mark("phase 15f")
     run_loader()
+    mark("phase 11")
     band_rows, e = run_band_kernels()
     errs.update({k: max(errs[k], v) for k, v in e.items()})
+    mark("phase 13a")
     by_path["mesh_object_steps"] = run_mesh_objects()
+    mark("phase 13b")
     by_path["mesh_scene_steps"] = run_mesh_scene()
+    mark("phase 13c")
     run_knn_init(t_knn)
     run_losses()
+    mark("phases 14a and 14e")
 
     table = []
     for k in kernels.KERNEL_NAMES:
@@ -2870,8 +3069,7 @@ def main():
         scenes = {}
         if k in K1_K3:
             scenes = {lab: {kk: rr[k][kk] for kk in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                       "order_kernel_ms", "index_order_ms")
-                            if kk in rr[k]}
+                                                       *K1_ORDER_KEYS) if kk in rr[k]}
                       for lab, rr in (("config #3 5x60K 800^2", comp_rows),
                                       ("config #4 scene 512^2", scene_rows),
                                       ("mesh band 512x256 from row 256, chunk 256", band_rows),
@@ -2881,7 +3079,10 @@ def main():
                                        single_rows["32x16"]),
                                       ("config #4 single cam 1920x1080 16x16",
                                        single_rows["16x16"]),
-                                      *outdoor_rows.items())}
+                                      *outdoor_rows.items(),
+                                      *((f"50K object {v} 16x16", rr)
+                                        for v, rr in large_rows.items()),
+                                      ("bench 300K 512^2", bench_rows))}
         table.append({"name": k, "route": "cuda", "variant": r.get("variant", "scalar"),
                       "source": src, "replaces": rep,
                       "launches": sum(launches.values()), "launches_by_path": launches,
@@ -2889,7 +3090,8 @@ def main():
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                       **({"scene_shapes": scenes} if scenes else {}),
-                      **{kk: r[kk] for kk in ("launch_host_ms", "call_host_ms") if kk in r}})
+                      **{kk: r[kk] for kk in ("launch_host_ms", "call_host_ms",
+                                              *K1_ORDER_KEYS) if kk in r}})
     log(json.dumps({"k4_shapes": {lab: {kk: v for kk, v in r.items() if kk != "bound"}
                                   for lab, r in k4.items()}}))
     log(json.dumps({"kernels": table}))

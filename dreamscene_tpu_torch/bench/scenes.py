@@ -117,10 +117,19 @@ def indoor_scene(config_path, obj_pts=30_000, seed=0):
 
 def binned_inputs(st, cam, tile_w, tile_h, chunk=512, sh_degree=2, capacity=None,
                   band=None):
-    """Project and bin one view at `capacity` entries (default 4 per
-    splat row); returns everything the kernels take. `band` = (first row,
-    rows): the tile band a rank of the mesh path bins (screen y shifted
-    by the first row after projecting against the whole image)."""
+    """Project and bin one view of a GaussianState at `capacity` entries
+    (default 4 per splat row); returns everything the kernels take. `band`
+    = (first row, rows): the tile band a rank of the mesh path bins (screen
+    y shifted by the first row after projecting against the whole image)."""
+    return binned_splats(st.get_xyz, st.get_scaling, st.get_rotation, st.get_opacity[:, 0],
+                         st.get_features, cam, tile_w, tile_h, chunk=chunk,
+                         sh_degree=sh_degree, capacity=capacity, band=band,
+                         valid_mask=st.aux["active"])
+
+
+def binned_splats(means3d, scales, quats, opacities, shs, cam, tile_w, tile_h, chunk=512,
+                  sh_degree=2, capacity=None, band=None, valid_mask=None):
+    """`binned_inputs` on splat arrays as `render` takes them."""
     from dreamscene_tpu_torch.ops import binning
     from dreamscene_tpu_torch.ops.gather import row_gather
     from dreamscene_tpu_torch.ops.projection import project_gaussians
@@ -128,12 +137,12 @@ def binned_inputs(st, cam, tile_w, tile_h, chunk=512, sh_degree=2, capacity=None
     dev = torch.device("cuda")
     with torch.no_grad():
         sp = project_gaussians(
-            st.get_xyz, st.get_scaling, st.get_rotation, st.get_opacity[:, 0],
-            st.get_features, torch.as_tensor(cam.world_view_transform, device=dev),
+            means3d, scales, quats, opacities, shs,
+            torch.as_tensor(cam.world_view_transform, device=dev),
             torch.as_tensor(cam.full_proj_transform, device=dev),
             torch.as_tensor(cam.camera_center, device=dev), cam.tanfovx,
             cam.tanfovy, cam.width, cam.height, sh_degree=sh_degree,
-            valid_mask=st.aux["active"])
+            valid_mask=valid_mask)
         n = sp.means2d.shape[0]
         capacity = capacity or 4 * n
         height, means2d = cam.height, sp.means2d

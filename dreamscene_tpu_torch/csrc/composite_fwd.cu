@@ -29,8 +29,9 @@
 // the tile allows it), four warps to a CTA, each warp on its own, and the
 // launch lasts as long as the busiest warp and the warps that share its SM.
 // Two kernels per call:
-//  * a one-CTA kernel ranks the tiles by live entries, most first; the main
-//    kernel dispatches the tiles' warps in that order, so the busiest tiles
+//  * a first kernel ranks the tiles by live entries, most first (one
+//    thread a tile, in shared memory that does not grow with the tile
+//    count: any tile count the binning takes); the main kernel dispatches the tiles' warps in that order, so the busiest tiles
 //    start at once, about one CTA to an SM, and the cheap ones fill in
 //    behind them (in plain tile order the busy middle of the image shared
 //    SMs: 0.21 against 0.176 ms at the path's scene on an NVIDIA H100 80GB
@@ -261,33 +262,72 @@ __device__ __forceinline__ void issue(const Cursor& c, float4* stage,
 }
 
 // The tiles ordered by live entries, most first, ties by tile index, into
-// order[0 .. n_tiles] (the trash tile n_tiles has none). One CTA: the
-// per-tile sums of the chunks' live entries in shared memory (integer
-// atomics, so the sums are exact), then each tile's rank counted against
-// every other tile's key.
-__global__ void __launch_bounds__(1024) tile_order_kernel(
+// order[0 .. n_tiles] (the trash tile n_tiles has none). Each tile's key is
+// (INT_MAX - its live entries) << 32 | its index, all keys distinct, and its
+// rank is the number of keys below its own. Each CTA ranks ORDER_THREADS
+// tiles, one a thread, against every key: the keys pass through a fixed
+// window of ORDER_WINDOW in shared memory, each window's live-entry sums
+// formed there from the chunks of its tiles (a contiguous run, the chunks
+// being sorted by tile) with integer atomics, so the sums are exact. Shared
+// memory does not grow with the tile count, and the n^2 comparisons spread
+// over n / ORDER_THREADS CTAs. The CTA's own window comes first, so each
+// thread holds its key before it counts.
+constexpr int ORDER_THREADS = 256;
+constexpr int ORDER_WINDOW = 4096;                         // 32 KB of keys
+
+// the first chunk whose tile (clamped to [0, n_tiles]) is v or later
+__device__ __forceinline__ int first_chunk_of(const int* __restrict__ chunk_tile,
+                                              int n_chunks, int n_tiles, int v) {
+  if (v <= 0) return 0;
+  if (v > n_tiles) return n_chunks;
+  return ds::lower_bound_i32(chunk_tile, n_chunks, v);
+}
+
+__global__ void __launch_bounds__(ORDER_THREADS) tile_order_kernel(
     const int* __restrict__ chunk_tile, const int* __restrict__ lo,
     const int* __restrict__ hi, int n_chunks, int n_tiles, int* __restrict__ order) {
-  extern __shared__ unsigned long long key[];              // [n_tiles + 1], then the costs
-  int* cost = reinterpret_cast<int*>(key + n_tiles + 1);
+  static_assert(ORDER_WINDOW % ORDER_THREADS == 0, "a CTA's tiles lie in one window");
+  __shared__ unsigned long long key[ORDER_WINDOW];          // the sums, then the keys
+  __shared__ int run[2];
   const int n = n_tiles + 1;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) cost[t] = 0;
-  __syncthreads();
-  for (int u = threadIdx.x; u < n_chunks; u += blockDim.x) {
-    const int live = hi[u] - lo[u];
-    if (live > 0) atomicAdd(&cost[min(max(chunk_tile[u], 0), n_tiles)], live);
+  const int n_win = (n + ORDER_WINDOW - 1) / ORDER_WINDOW;
+  const int t = blockIdx.x * ORDER_THREADS + threadIdx.x;
+  const int own = blockIdx.x * ORDER_THREADS / ORDER_WINDOW;
+  unsigned long long k = 0ull;
+  int r = 0;
+  for (int i = 0; i < n_win; ++i) {
+    const int w0 = ((own + i) % n_win) * ORDER_WINDOW;
+    const int nw = min(ORDER_WINDOW, n - w0);
+    __syncthreads();                                       // the last window is read
+    for (int v = threadIdx.x; v < nw; v += ORDER_THREADS) key[v] = 0ull;
+    if (threadIdx.x < 2)
+      run[threadIdx.x] = first_chunk_of(chunk_tile, n_chunks, n_tiles, w0 + threadIdx.x * nw);
+    __syncthreads();
+    for (int u = run[0] + threadIdx.x; u < run[1]; u += ORDER_THREADS) {
+      const int live = hi[u] - lo[u];
+      if (live > 0)
+        atomicAdd(&key[min(max(chunk_tile[u], 0), n_tiles) - w0], (unsigned long long)live);
+    }
+    __syncthreads();
+    // ascending keys: cost descending, then tile ascending
+    for (int v = threadIdx.x; v < nw; v += ORDER_THREADS)
+      key[v] = ((unsigned long long)(unsigned)(INT_MAX - (int)key[v]) << 32) |
+               (unsigned)(w0 + v);
+    __syncthreads();
+    if (i == 0 && t < n) k = key[t - w0];
+    if (t < n) {
+#pragma unroll 8
+      for (int v = 0; v < nw; ++v) r += key[v] < k;
+    }
   }
-  __syncthreads();
-  // ascending keys: cost descending, then tile ascending (all distinct)
-  for (int t = threadIdx.x; t < n; t += blockDim.x)
-    key[t] = ((unsigned long long)(unsigned)(INT_MAX - cost[t]) << 32) | (unsigned)t;
-  __syncthreads();
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const unsigned long long k = key[t];
-    int r = 0;
-    for (int v = 0; v < n; ++v) r += key[v] < k;
-    order[r] = t;
-  }
+  if (t < n) order[r] = t;
+}
+
+void launch_tile_order(const void* chunk_tile, const void* lo, const void* hi, int n_chunks,
+                       int n_tiles, void* order, void* stream) {
+  tile_order_kernel<<<(n_tiles + ORDER_THREADS) / ORDER_THREADS, ORDER_THREADS, 0,
+                      (cudaStream_t)stream>>>((const int*)chunk_tile, (const int*)lo,
+                                              (const int*)hi, n_chunks, n_tiles, (int*)order);
 }
 
 // GROUP consecutive walked entries: their alphas at this lane's pixel and
@@ -504,17 +544,7 @@ int launch(const void* rec, int cap_pad, const void* chunk_tile, const void* s0,
   if (warp_w == 0) warp_w = pick_warp_w(tile_w, tile_h);
   if (warp_w <= 0 || 32 % warp_w != 0 || tile_w % warp_w != 0 || tile_h % (32 / warp_w) != 0)
     return (int)cudaErrorInvalidValue;
-  if (tile_order) {
-    const size_t smem = (size_t)(n_tiles + 1) * (sizeof(unsigned long long) + sizeof(int));
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          tile_order_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    tile_order_kernel<<<1, 1024, smem, (cudaStream_t)stream>>>(
-        (const int*)chunk_tile, (const int*)lo, (const int*)hi, n_chunks, n_tiles,
-        (int*)tile_order);
-  }
+  if (tile_order) launch_tile_order(chunk_tile, lo, hi, n_chunks, n_tiles, tile_order, stream);
   const int warps = (n_tiles + 1) * (tile_pix / 32);
   composite_fwd_kernel<<<(warps + WARPS - 1) / WARPS, WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const float*)rec, cap_pad, (const int*)chunk_tile, (const int*)s0,
@@ -527,8 +557,7 @@ int launch(const void* rec, int cap_pad, const void* chunk_tile, const void* s0,
 
 }  // namespace
 
-// tile_order: scratch for n_tiles + 1 ints, where a first one-CTA kernel
-// puts the tiles in the order the main kernel dispatches them (most live
+// tile_order: scratch for n_tiles + 1 ints, where a first kernel puts the tiles in the order the main kernel dispatches them (most live
 // entries first); null dispatches them as 0, 1, 2, ... (bench only).
 extern "C" int ds_composite_fwd(
     const void* rec, int cap_pad, const void* chunk_tile, const void* s0,
@@ -537,6 +566,17 @@ extern "C" int ds_composite_fwd(
   return launch(rec, cap_pad, chunk_tile, s0, lo, hi, n_chunks, out, carry, n_tiles,
                 tiles_x, tile_w, tile_h, 0, tile_order, nullptr, INT_MAX, stream);
 }
+
+#ifndef DS_K1_PER_TILE
+// The first kernel alone, the tile order into order[0 .. n_tiles]
+// (chip_smoke.py times it beside K1).
+extern "C" int ds_tile_order(const void* chunk_tile, const void* lo, const void* hi,
+                             int n_chunks, int n_tiles, void* order, void* stream) {
+  if (n_tiles < 1) return (int)cudaErrorInvalidValue;
+  launch_tile_order(chunk_tile, lo, hi, n_chunks, n_tiles, order, stream);
+  return (int)cudaGetLastError();
+}
+#endif
 
 // For bench/k1_variants.py: the same launch with a warp block width of its
 // own choosing (0: the launcher's), each CTA (per-tile build) or warp writing

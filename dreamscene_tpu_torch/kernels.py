@@ -61,6 +61,11 @@ _SIGNATURES = {
         _P,                                    # tile-order scratch
         _P,                                    # stream
     ],
+    "ds_tile_order": [                         # K1's first kernel alone; chip_smoke.py only
+        _P, _P, _P, _I, _I,                    # chunk_tile lo hi n_chunks n_tiles
+        _P,                                    # order
+        _P,                                    # stream
+    ],
     "ds_composite_fwd_timed": [                # bench/k1_variants.py only
         _P, _I, _P, _P, _P, _P, _I,            # rec cap_pad chunk_tile s0 lo hi n_chunks
         _P, _P,                                # out carry

@@ -66,6 +66,24 @@ def timed(name: str, sync=None):
         logger.info("%s: %.2f ms", name, (time.perf_counter() - t0) * 1e3)
 
 
+def device_busy_ms(fn, skip=()) -> float:
+    """Summed spans of the CUDA kernels and copies that one `fn()` queues
+    (torch.profiler, the card synchronized before and after): the device
+    busy time of a process alone on the card. Device-side events named with
+    a prefix in `skip` (profiler ranges the caller opened) are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    skip = tuple(skip)
+    return sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not (skip and e.name.startswith(skip)))
+
+
 def roofline(flops: float, bytes_moved: float, seconds: float,
              peak_flops: float = H100_BF16_FLOPS,
              peak_bw: float = H100_HBM_BYTES_PER_S) -> dict:

@@ -30,6 +30,42 @@ def test_kernels_match_plain_versions(card, tile_w, tile_h):
     assert errs["expand_entries"] == 0.0
 
 
+# K1's first kernel ranks the tiles through a fixed shared-memory window:
+# tile counts up to and past the 19,369 whose keys one CTA's shared memory
+# could hold, windows of 4,096 keys and their edges, many ties in cost
+@pytest.mark.parametrize("n_tiles", [1, 512, 4095, 4096, 19_369, 40_000])
+def test_tile_order_kernel_any_tile_count(card, n_tiles):
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.ops import composite as C
+
+    g = torch.Generator().manual_seed(n_tiles)
+    n_used, n_free = 3 * n_tiles, 64
+    ct = torch.sort(torch.randint(0, n_tiles, (n_used,), generator=g)).values
+    ct = torch.cat([ct, torch.full((n_free,), n_tiles)]).int()
+    lo = torch.randint(0, 8, (n_used + n_free,), generator=g).int()
+    hi = lo + torch.randint(-2, 60, (n_used + n_free,), generator=g).int()
+    hi[n_used:] = lo[n_used:]
+    ct, lo, hi = (t.cuda() for t in (ct, lo, hi))
+    order = torch.empty((n_tiles + 1,), dtype=torch.int32, device="cuda")
+    kernels.check(kernels.lib().ds_tile_order(
+        ct.data_ptr(), lo.data_ptr(), hi.data_ptr(), ct.shape[0], n_tiles, order.data_ptr(),
+        kernels.stream_ptr(ct.device)), "tile_order")
+    torch.cuda.synchronize()
+    assert torch.equal(order, C.tile_order(ct, lo, hi, n_tiles))
+
+
+def test_kernels_match_plain_versions_past_one_cta_order(card):
+    """K1-K3 at 2560x2560 with 16x16 tiles: 25,600 tiles."""
+    import chip_smoke as cs
+    from dreamscene_tpu_torch.bench import scenes
+
+    st, cam = cs.make_scene(3000, 2560, 2560, seed=5)
+    inp = scenes.binned_inputs(st, cam, 16, 16)
+    assert inp["n_tiles"] > cs.ONE_CTA_ORDER_TILES
+    errs, _ = cs.check_kernels("pytest 2560x2560 16x16", inp, timing=False)
+    assert errs["expand_entries"] == 0.0
+
+
 # K2 walks one chunk per CTA from K1's carry table: a scene whose splats all
 # fall into one or two tiles (one tile holds most chunks, nearly every other
 # tile is empty) and one that leaves most tiles empty around a small object,
