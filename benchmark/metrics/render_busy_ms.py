@@ -1,0 +1,13 @@
+"""render_busy_ms: device ms a step of the work that starts inside the
+program's `fps.render` range (projection, binning, K3, K1 over the step's
+cameras), from the traced steps."""
+
+RANGES = ("fps.render",)
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None:
+        return None
+    s = tr.in_ranges(RANGES)
+    return None if s is None else s * 1e3 / tr.n_steps
