@@ -977,10 +977,11 @@ def profile_step(step_fn, untraced_ms, tag, prefix="fps", ranges=()):
     by phase and by kernel family, and the device's idle share of the
     untraced median step (the traced step's own wall time is inflated by
     the profiler). A phase's time is the kernel time that starts inside its
-    `prefix`.* window on the device timeline. The backward's kernels are
-    launched by autograd's device thread, outside every range, so its
-    window is the gap from the ladder's end to the optimizer's start (the
-    loss terms and the whole backward). Each of `ranges` (a profiler range
+    `prefix`.* window on the device timeline. The backward's phase is the
+    gap from the ladder's end to the optimizer's start (the loss terms and
+    the whole backward, which autograd's device thread launches; its
+    `.render.bwd` and `.vae_encode.bwd` ranges open only under a profiler
+    and are read by the benchmark). Each of `ranges` (a profiler range
     that may open many times in the step, as `controlnet` does once per UNet
     pass) gets the kernel time that starts inside any of its windows."""
     from torch.profiler import ProfilerActivity, profile

@@ -44,6 +44,7 @@ from dreamscene_tpu_torch.ops.ddim import (
     make_schedule,
     pred_original,
 )
+from dreamscene_tpu_torch.utils.profiling import BackwardSpans
 
 # latent -> approximate RGB preview (multitime_sd_utils.py:135-144)
 RGB_LATENT_FACTORS = np.array(
@@ -190,17 +191,22 @@ def specify_gradient_loss(latents, grad):
 
 def guidance_loss(mods: GuidanceModules, images, depths, flip: bool, as_latent: bool,
                   vae_eps, noise, ladder, text_emb, guidance_scale: float,
-                  lambda_guidance: float, use_cn: bool = False, phase: str = "fps"):
+                  lambda_guidance: float, use_cn: bool = False, phase: str = "fps", *,
+                  spans: BackwardSpans):
     """The guidance term of a training step: flip the renders, VAE-encode
     the images (the disparities with `as_latent`), score the latents on the
     ladder (the flipped disparities as the ControlNet's depth hint with
     `use_cn`) and return sum(latents * sg(CSD gradient)). The encode and
     the ladder are marked as `<phase>.vae_encode` / `<phase>.ladder`
-    profiler ranges."""
+    profiler ranges, and through the step's `spans` the encoder's backward,
+    from the gradient of the latents to that of the encoder's input, as
+    `<phase>.vae_encode.bwd`."""
     images_f, depths_f = horizontal_flip(flip, images, depths)
     enc_in = depths_f.repeat(1, 3, 1, 1) if as_latent else images_f
     with torch.profiler.record_function(f"{phase}.vae_encode"):
+        (enc_in,) = spans.end(f"{phase}.vae_encode.bwd", (enc_in,))
         latents = encode_images(mods, enc_in, vae_eps)
+        (latents,) = spans.begin(f"{phase}.vae_encode.bwd", (latents,))
     # depth-ControlNet hint: the flipped disparities, NHWC x 3 channels
     hint = depths_f.permute(0, 2, 3, 1).repeat(1, 1, 1, 3).detach() if use_cn else None
     with torch.profiler.record_function(f"{phase}.ladder"):

@@ -77,6 +77,7 @@ from dreamscene_tpu_torch.training.capacity import CapacityController
 from dreamscene_tpu_torch.training.filtering import importance_filter
 from dreamscene_tpu_torch.utils.experiment import setup_experiment_logging
 from dreamscene_tpu_torch.utils.media import save_image_grid, write_video
+from dreamscene_tpu_torch.utils.profiling import BackwardSpans
 
 logger = logging.getLogger("dreamscene_tpu_torch")
 
@@ -182,7 +183,9 @@ def fps_step(state: GaussianState, mods: mtsd.GuidanceModules, cams: list, aug,
     ControlNet with the flipped disparity maps as the depth hint. Returns
     the new params/opt/aux, the loss, the peak
     n_entries/n_dropped over the cameras and the raw gradients. The
-    phases are marked as fps.* profiler ranges.
+    phases are marked as fps.* profiler ranges, the backward's parts too:
+    `fps.render.bwd` from the gradients of the render's outputs to those
+    of its inputs, `fps.vae_encode.bwd` (utils/profiling.BackwardSpans).
 
     With a `mesh` (parallel/), this rank's part of the step. The
     arguments are the same on every rank (the whole batch); `state` holds
@@ -224,18 +227,24 @@ def fps_step(state: GaussianState, mods: mtsd.GuidanceModules, cams: list, aug,
                   scaling=torch.exp(params["scaling"]),
                   rotation=q / torch.linalg.norm(q, dim=-1, keepdim=True),
                   opacities=torch.sigmoid(params["opacity"])[:, 0], active=active)
+    spans = BackwardSpans()
     with torch.profiler.record_function("fps.render"):
+        inputs = spans.end("fps.render.bwd", inputs)
         out = render_fn(inputs, cams[mine], aug[mine], probes, shs_noise[mine][:, rows],
                         scale_noise[mine][:, rows])
-        images = X.gather_replicated(out["images"], tp_group, dim=2)
-        depths = X.gather_replicated(out["disps"], tp_group, dim=2)
+        images, depths, scale_share = spans.begin("fps.render.bwd", (
+            X.gather_replicated(out["images"], tp_group, dim=2),
+            X.gather_replicated(out["disps"], tp_group, dim=2), out["scale_share"]))
     loss_img = (mtsd.guidance_loss(mods, images, depths, flip, as_latent, vae_eps[mine],
                                    noise[mine], ladder, SR.text_rows(text_emb, c_batch, mine),
-                                   guidance_scale, lambda_guidance, use_cn)
+                                   guidance_scale, lambda_guidance, use_cn, spans=spans)
                 + lambda_tv * (tv_loss(images) + tv_loss(depths)) * (b_local / c_batch))
-    loss = loss_img + lambda_scale * out["scale_share"]
+    loss = loss_img + lambda_scale * scale_share
     with torch.profiler.record_function("fps.backward"):
-        loss.backward()
+        try:
+            loss.backward()
+        finally:
+            spans.close()
 
     with torch.profiler.record_function("fps.allreduce"):
         grads = SR.reduce_gradients(
@@ -263,26 +272,35 @@ def recon_step(state: GaussianState, cam: dict, gt_image, lrs: dict, *, width: i
     render one reco camera on a black background, loss = 100 *
     mean((image - gt)^2), backward through the rasterizer, masked Adam,
     densification statistics. Returns the new params/opt/aux, the loss
-    and the raw gradients."""
+    and the raw gradients. The render, its backward and Adam are the
+    `recon.render`, `recon.render.bwd` and `recon.adam` profiler ranges."""
     params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
     active = state.aux["active"]
     probe = torch.zeros((params["xyz"].shape[0], 2), device=state.device, requires_grad=True)
     q = params["rotation"]
-    out = render(
-        means3d=params["xyz"], scales=torch.exp(params["scaling"]),
-        quats=q / torch.linalg.norm(q, dim=-1, keepdim=True),
-        opacities=torch.sigmoid(params["opacity"])[:, 0],
-        shs=torch.cat([params["features_dc"], params["features_rest"]], dim=1), **cam,
-        width=width, height=height, bg=torch.zeros(3, device=state.device),
-        sh_degree=active_deg, capacity=capacity, means2d_probe=probe, valid_mask=active,
-        device=state.device)
-    loss = 100.0 * torch.mean((out["image"] - gt_image) ** 2)
-    loss.backward()
+    spans = BackwardSpans()
+    with torch.profiler.record_function("recon.render"):
+        inputs = spans.end("recon.render.bwd", dict(
+            means3d=params["xyz"], scales=torch.exp(params["scaling"]),
+            quats=q / torch.linalg.norm(q, dim=-1, keepdim=True),
+            opacities=torch.sigmoid(params["opacity"])[:, 0],
+            shs=torch.cat([params["features_dc"], params["features_rest"]], dim=1)))
+        out = render(
+            **inputs, **cam, width=width, height=height, bg=torch.zeros(3, device=state.device),
+            sh_degree=active_deg, capacity=capacity, means2d_probe=probe, valid_mask=active,
+            device=state.device)
+        (image,) = spans.begin("recon.render.bwd", (out["image"],))
+    loss = 100.0 * torch.mean((image - gt_image) ** 2)
+    try:
+        loss.backward()
+    finally:
+        spans.close()
     grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
              for k, v in params.items()}
-    new_params, new_opt = adam_update(state.params, grads, state.opt, active, lrs)
-    new_aux = D.update_max_radii(state.aux, out["radii"], out["visibility_filter"])
-    new_aux = D.add_densification_stats(new_aux, probe.grad, out["visibility_filter"])
+    with torch.profiler.record_function("recon.adam"):
+        new_params, new_opt = adam_update(state.params, grads, state.opt, active, lrs)
+        new_aux = D.update_max_radii(state.aux, out["radii"], out["visibility_filter"])
+        new_aux = D.add_densification_stats(new_aux, probe.grad, out["visibility_filter"])
     return dict(params=new_params, opt=new_opt, aux=new_aux, loss=loss.detach(), grads=grads)
 
 
@@ -441,15 +459,22 @@ class ObjectTrainer:
             guidance_scale=self.guidance_opt.guidance_scale,
             lambda_guidance=self.guidance_opt.lambda_guidance, use_cn=use_cn, mesh=self.mesh)
 
+    @torch.profiler.record_function("fps.step")
     def train_step(self) -> float:
-        inputs = self.step_inputs()
+        """One FPS step and the cadence around it, as the `fps.step`
+        profiler range; the host side of the step is `fps.step_inputs`, the
+        host's read of the loss and the entry counts `fps.sync`, the
+        guidance visualization every `vis_interval` steps `fps.viz`."""
+        with torch.profiler.record_function("fps.step_inputs"):
+            inputs = self.step_inputs()
         optim = self.optim
         st = self.state
         res = fps_step(**inputs)
         st.params, st.opt, st.aux = res["params"], res["opt"], res["aux"]
-        loss, n_entries, n_dropped = torch.stack(
-            [res["loss"].double(), res["n_entries"].double(),
-             res["n_dropped"].double()]).tolist()
+        with torch.profiler.record_function("fps.sync"):
+            loss, n_entries, n_dropped = torch.stack(
+                [res["loss"].double(), res["n_entries"].double(),
+                 res["n_dropped"].double()]).tolist()
         self.last_stats = dict(n_entries=int(n_entries), n_dropped=int(n_dropped),
                                n_rungs=len(inputs["ladder"]), capacity=inputs["capacity"])
         if self.cap_ctrl.update(self._n_band, int(n_entries), int(n_dropped)):
@@ -477,7 +502,8 @@ class ObjectTrainer:
 
         # no try/except: a failing kernel in the viz must not be hidden
         if self.step % self.guidance_opt.vis_interval == 0:
-            self.save_guidance_viz(self.last_cameras[0], self.last_vds)
+            with torch.profiler.record_function("fps.viz"):
+                self.save_guidance_viz(self.last_cameras[0], self.last_vds)
         return float(loss)
 
     def _densify(self, optim, size_thr):

@@ -93,6 +93,7 @@ from dreamscene_tpu_torch.training.object_trainer import (
 )
 from dreamscene_tpu_torch.utils.experiment import setup_experiment_logging
 from dreamscene_tpu_torch.utils.media import write_video
+from dreamscene_tpu_torch.utils.profiling import BackwardSpans
 
 logger = logging.getLogger("dreamscene_tpu_torch")
 
@@ -142,7 +143,9 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
     params/opt/aux (the input's where not trainable), the loss, the peak
     n_entries / n_dropped over the cameras, the trainable models' raw
     gradients (None elsewhere) and the last camera's probe gradient. The
-    phases are marked as scene.* profiler ranges.
+    phases are marked as scene.* profiler ranges, the backward's parts too:
+    `scene.render.bwd` from the gradients of the render's outputs to those
+    of its inputs, `scene.vae_encode.bwd` (utils/profiling.BackwardSpans).
 
     With a `mesh` (parallel/), this rank's part of the step: the
     arguments are the whole batch on every rank; states sharded over
@@ -187,6 +190,7 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
             global_capacity=None))
     sh_degree = min(s.active_sh_degree for s in states)
 
+    spans = BackwardSpans()
     with torch.profiler.record_function("scene.render"):
         fields, offsets = concat_states(whole)
         total_c = int(offsets[-1])
@@ -200,23 +204,25 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
             rows = (total_c + pad) // n_tp
             lo, hi = mesh.coords["tp"] * rows, (mesh.coords["tp"] + 1) * rows
             fields = {k: v[lo:hi] for k, v in fields.items()}
-        inputs = dict(xyz=fields["means3d"], features=fields["shs"], scaling=fields["scales"],
-                      rotation=fields["quats"], opacities=fields["opacities"],
-                      active=fields["valid_mask"])
+        inputs = spans.end("scene.render.bwd", dict(
+            xyz=fields["means3d"], features=fields["shs"], scaling=fields["scales"],
+            rotation=fields["quats"], opacities=fields["opacities"], active=fields["valid_mask"]))
         probes = torch.zeros((b_local, hi - lo, 2), device=dev, requires_grad=True)
         render_fn = SR.make_fps_camera_render(mesh, width, height, sh_degree, capacity,
                                               c_batch, chunk=chunk, shard_splats=shard_splats)
         aug = [list(bg) + [0.0, 0.0, 0.0] for bg in bg_rows[mine]]
         out = render_fn(inputs, cams[mine], aug, probes)
-        images = X.gather_replicated(out["images"], tp_group, dim=2)
-        depths = X.gather_replicated(out["disps"], tp_group, dim=2)
+        images, depths = spans.begin("scene.render.bwd", (
+            X.gather_replicated(out["images"], tp_group, dim=2),
+            X.gather_replicated(out["disps"], tp_group, dim=2)))
 
     share = b_local / c_batch
     scale_term = 0.0
     if guidance_on:
         loss_img = (mtsd.guidance_loss(mods, images, depths, flip, as_latent, vae_eps[mine],
                                        noise[mine], ladder, SR.text_rows(text_emb, c_batch, mine),
-                                       guidance_scale, lambda_guidance, use_cn, "scene")
+                                       guidance_scale, lambda_guidance, use_cn, "scene",
+                                       spans=spans)
                     + lambda_tv * tv_loss(images) * share
                     + lambda_tv_depth * tv_loss(depths) * share)
         if PD.rank() == mesh.ranks[0]:
@@ -231,7 +237,10 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
     else:
         loss_img = 100.0 * torch.mean((images - gt_images[mine]) ** 2) * share
     with torch.profiler.record_function("scene.backward"):
-        (loss_img + scale_term).backward()
+        try:
+            (loss_img + scale_term).backward()
+        finally:
+            spans.close()
 
     with torch.profiler.record_function("scene.allreduce"):
         last_probe = probes.grad[b_local - 1].clone()
@@ -606,11 +615,16 @@ class SceneTrainer:
                       lambda_guidance=self.guidance_opt.lambda_guidance, use_cn=use_cn,
                       **mesh_args))
 
+    @torch.profiler.record_function("scene.step")
     def _run_scene_step(self, cameras, key_gs, only_env, scene_optim, stage_step_rate,
                         guidance_on=True, gt_images=None, optp=None) -> float:
-        """Shared body of the stage-1/2 step and the stage-3 recon step."""
-        inp = self.step_inputs(cameras, key_gs, only_env, scene_optim, stage_step_rate,
-                               guidance_on, gt_images, optp)
+        """Shared body of the stage-1/2 step and the stage-3 recon step, as
+        the `scene.step` profiler range; its host side is
+        `scene.step_inputs`, the host's read of the loss and the entry
+        counts `scene.sync`."""
+        with torch.profiler.record_function("scene.step_inputs"):
+            inp = self.step_inputs(cameras, key_gs, only_env, scene_optim, stage_step_rate,
+                                   guidance_on, gt_images, optp)
         names, args = inp["names"], inp["args"]
         cap_base = sum(s.global_capacity or s.capacity for s in args["states"]) // 2
         if self.mesh is not None:
@@ -618,9 +632,10 @@ class SceneTrainer:
             # the per-band table
             cap_base = max(cap_base // self.mesh.shape["tp"], 4096)
         res = scene_step(**args)
-        loss, n_entries, n_dropped = torch.stack(
-            [res["loss"].double(), res["n_entries"].double(),
-             res["n_dropped"].double()]).tolist()
+        with torch.profiler.record_function("scene.sync"):
+            loss, n_entries, n_dropped = torch.stack(
+                [res["loss"].double(), res["n_entries"].double(),
+                 res["n_dropped"].double()]).tolist()
         self.last_stats = dict(n_entries=int(n_entries), n_dropped=int(n_dropped),
                                n_rungs=len(args["ladder"]), capacity=args["capacity"])
         if self.cap_ctrl.update(cap_base, int(n_entries), int(n_dropped)):

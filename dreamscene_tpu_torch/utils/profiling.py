@@ -5,11 +5,16 @@ The peaks are those of one NVIDIA H100 SXM (NVIDIA's data sheet, dense
 rates without sparsity, at the full 700 W power limit). They are the one
 place that holds them: `roofline` defaults to them, and chip_smoke.py's
 kernel bounds read them.
+
+`BackwardSpans` marks stretches of a step's backward pass as profiler
+ranges (`<phase>.<part>.bwd`), opened and closed on the thread that runs
+the backward.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import os
 import random
@@ -67,10 +72,12 @@ def timed(name: str, sync=None):
 
 
 def device_busy_ms(fn, skip=()) -> float:
-    """Summed spans of the CUDA kernels and copies that one `fn()` queues
-    (torch.profiler, the card synchronized before and after): the device
-    busy time of a process alone on the card. Device-side events named with
-    a prefix in `skip` (profiler ranges the caller opened) are left out."""
+    """Device busy time of one `fn()` (torch.profiler, the card
+    synchronized before and after) in ms: the length of the union of the
+    intervals of its CUDA kernels, copies and sets, so kernels that overlap
+    count once; a process alone on the card. Profiler ranges are left out
+    (device-side user annotations, and events named with a prefix in
+    `skip`)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -78,10 +85,90 @@ def device_busy_ms(fn, skip=()) -> float:
                  acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
+    return busy_ms_of(prof.events(), skip)
+
+
+def busy_ms_of(events, skip=()) -> float:
+    """`device_busy_ms`'s reading of a profiler's events."""
     skip = tuple(skip)
-    return sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not (skip and e.name.startswith(skip)))
+    intervals = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and not (skip and e.name.startswith(skip)))
+    total, reach = 0.0, float("-inf")
+    for s, e in intervals:
+        if e > reach:
+            total += e - max(s, reach)
+            reach = e
+    return total / 1e3
+
+
+class _OnBackward(torch.autograd.Function):
+    """Identity; its backward calls `hook()` before passing the gradients
+    on."""
+
+    @staticmethod
+    def forward(ctx, hook, *xs):
+        ctx.hook = hook
+        ctx.set_materialize_grads(False)
+        return xs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.hook()
+        return (None,) + grads
+
+
+class BackwardSpans:
+    """Profiler ranges over stretches of one step's backward pass.
+
+    The backward runs on autograd's own thread on the card, where no range
+    of the forward is open, so a range over part of it is opened and
+    closed by that thread: `end(name, tensors)` passes the tensors that
+    enter a stretch of the forward through an identity node whose backward
+    closes the range `name` (the gradients leave the stretch there), and
+    `begin(name, tensors)` passes the tensors that leave it through one
+    whose backward opens it (their gradients have arrived). Both take a
+    dict or a sequence and return the same kind, the tensors that require
+    a gradient replaced by the node's outputs; the others pass as they
+    are. With no profiler running when the object is made, both return
+    their argument and the graph is unchanged.
+
+    `close()` ends every range still open; the step calls it once its
+    backward is done, so a backward that stops between the two nodes, or
+    raises there, leaves no range open."""
+
+    def __init__(self):
+        self.on = torch.autograd._profiler_enabled()
+        self._held: dict = {}
+
+    def begin(self, name: str, tensors):
+        return self._mark(functools.partial(self._enter, name), tensors)
+
+    def end(self, name: str, tensors):
+        return self._mark(functools.partial(self._exit, name), tensors)
+
+    def _mark(self, hook, tensors):
+        items = dict(tensors) if isinstance(tensors, dict) else dict(enumerate(tensors))
+        keys = [k for k, t in items.items() if isinstance(t, torch.Tensor) and t.requires_grad]
+        if self.on and keys:
+            items.update(zip(keys, _OnBackward.apply(hook, *(items[k] for k in keys))))
+        return items if isinstance(tensors, dict) else tuple(items.values())
+
+    def _enter(self, name):
+        if name not in self._held:
+            rf = torch.profiler.record_function(name)
+            rf.__enter__()
+            self._held[name] = rf
+
+    def _exit(self, name):
+        rf = self._held.pop(name, None)
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+    def close(self):
+        for name in list(self._held):
+            self._exit(name)
 
 
 def roofline(flops: float, bytes_moved: float, seconds: float,
