@@ -28,15 +28,13 @@ Phases (any failure exits non-zero; nothing is caught):
      matmul + f32-softmax module path;
   3. the slice: ObjectTrainer at BASELINE.json config #2 width (50K
      points, sh_degree 2, 512^2, C_batch 4, SD2.1-architecture UNet + full
-     VAE with seeded random weights, 77 tokens, densify off), DS_FLASH_ATTN
-     unset: prepare_train, 2 warm-up + 5 timed train_step()s, launch counts
-     (K1-K3 once per camera, K4 never), one step under torch.profiler
-     (device time by phase and kernel); then the same 7 steps with
-     DS_FLASH_ATTN=1, timed, with the K4 launches checked against the
-     ladder lengths and every forward, dK/dV and dQ launch counted as the
-     tensor-core variant, and one such step under torch.profiler;
+     VAE with seeded random weights, 77 tokens, densify off):
+     prepare_train, 2 warm-up + 5 timed train_step()s, launch counts (K1-K3
+     once per camera; K4 checked against the ladder lengths, every
+     forward, dK/dV and dQ launch counted as the tensor-core variant), one
+     step under torch.profiler (device time by phase and kernel);
   3b. ObjectTrainer.train(make_videos=True) at config #2 width with
-     DS_FLASH_ATTN=1 and configs/objects/sample.yaml's cadences, from step
+     configs/objects/sample.yaml's cadences, from step
      1496 to 1502 (densify/prune, opacity reset, 48-view filter, SH
      step-up, guidance viz and a video all fire at step 1500), a snapshot
      PLY, the refine phase (9 pseudo-GT chunks, 18 recon steps, one recon
@@ -51,12 +49,12 @@ Phases (any failure exits non-zero; nothing is caught):
   6. config #4: configs/scenes/sample_indoor.yaml as shipped at env
      density 1.0 (written object PLYs, object_task, prepare_train_scene with
      compress and four placed instances): 2 + 5 stage-1 and 5 stage-2
-     scene steps with DS_FLASH_ATTN unset and again set, launch counts
-     checked, a profiled step each way (scene.* phases), K1-K3 held and
+     scene steps, launch counts checked, a profiled step (scene.*
+     phases), K1-K3 held and
      timed on a stage-1 view and on its rows 256-511 as a tp-2 rank of
      phase 13c bins them (chunk 256);
   7. SceneTrainer.train(n_stage3=1, make_videos=True) on that scene with
-     3 stage-1 and 1 stage-2 steps (gate set): checkpoints, the 80-view
+     3 stage-1 and 1 stage-2 steps: checkpoints, the 80-view
      pseudo-GT bank and recon steps, the final video, scene_final_model.ply
      reloaded; then a second train() that resumes at stage 3 and trains
      nothing;
@@ -66,10 +64,10 @@ Phases (any failure exits non-zero; nothing is caught):
      full-width SD2.1-architecture ControlNet (seeded weights, its zero
      convs filled with small seeded values so the residuals reach the
      UNet; eps with and without it on one UNet call), every step
-     conditioned: 2 + 5 train_step()s with DS_FLASH_ATTN unset and set,
-     K4 forward launches checked at 10 + 4 per UNet pass, a profiled step
-     each way (device time of the `controlnet` range), peak memory; 9b. two config
-     #4 stage-1 scene steps with that ControlNet, gate set;
+     conditioned: 2 + 5 train_step()s, K4 forward launches checked at
+     10 + 4 per UNet pass, a profiled step (device time of the
+     `controlnet` range), peak memory; 9b. two config #4 stage-1 scene
+     steps with that ControlNet;
  10. one small ControlNet FPS step on the card against the CPU;
  11. the checkpoint loader without a download: a tiny diffusers directory
      written under build/ (unet/ and controlnet/ as F16 safetensors, vae/
@@ -87,7 +85,7 @@ Phases (any failure exits non-zero; nothing is caught):
      slab-narrowed cull against the JAX package's plain cull (same grid);
  13. the multi-rank path (parallel/), its ranks spawned by
      parallel/launch.run_ranks after the kernels are built, all on cuda:0
-     over gloo (NCCL refuses two ranks on one card), DS_FLASH_ATTN=1; their
+     over gloo (NCCL refuses two ranks on one card); their
      times are those of ranks sharing one card, not scaling numbers:
      13a. K1-K3 at the tile bands of phase 2's 50K object (512x256 and
      512x128 from row 256; chunk 256) against their plain versions, and
@@ -118,18 +116,18 @@ Phases (any failure exits non-zero; nothing is caught):
      plain versions and timed at 32x16 (4,080 tiles) and 16x16 (8,160
      tiles), the live tiles of the partial last tile row;
      14c. (after phase 9) mtsd.denoise_ladder on phase 3's stack (64x64
-     latents, batch 1, 3 rungs, DS_FLASH_ATTN=1): K4 forward launches
+     latents, batch 1, 3 rungs): K4 forward launches
      checked, the walk timed, K4 at the walk's shapes [3,5,4096,64] and
      [3,10,1024,64]; the tiny stack's walk card against CPU (float32,
      atol 1e-4);
-     14d. (after phase 9) one gate-set FPS step of phase 3's trainer inside
+     14d. (after phase 9) one FPS step of phase 3's trainer inside
      utils/profiling.trace, whose Chrome trace must name every K1-K4
      kernel symbol;
      14e. l1_loss and ssim on a [4,3,512,512] pair, card against CPU
      (atol 1e-5);
  15. config #5 (BASELINE.json): configs/scenes/sample_outdoor.yaml as
-     shipped at env density 1.0, on phase 6's guidance stack with
-     DS_FLASH_ATTN=1, right after phase 8:
+     shipped at env density 1.0, on phase 6's guidance stack, right after
+     phase 8:
      15a. its two objects written as finished PLYs (point-e never runs),
      object_task, prepare_train_scene (compress, two placements, the env
      hemisphere shell and the floor disk); the census per model (active,
@@ -611,34 +609,20 @@ def run_slice():
     log(f"[slice] set-up {time.perf_counter() - t0:.1f}s, state capacity "
         f"{tr.state.capacity}, active {int(tr.state.aux['active'].sum())}")
     torch.cuda.reset_peak_memory_stats()
-    os.environ.pop("DS_FLASH_ATTN", None)
-    ms, counts, _ = fps_steps(tr, "slice")
+    ms, counts, rungs = fps_steps(tr, "slice")
     moved = float((tr.state.params["xyz"] - xyz0).abs().max())
     assert moved > 0, "params did not move"
     assert all(torch.isfinite(v).all() for v in tr.state.params.values())
     n_steps = N_STEPS_WARM + N_STEPS_TIMED
+    # K1-K3 once a camera; K4 at the 10 self-attention layers of n >= 1024
+    # per UNet pass and the VAE encoder's mid block
     expect = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
-    expect.update({k: 0 for k in K4 + kernels.VARIANT_NAMES})
+    expect.update(k4_expect(rungs, 10, n_steps))
     assert counts == expect, (counts, expect)
-    log(f"[slice] DS_FLASH_ATTN unset: median {ms:.1f} ms/step, xyz moved {moved:.3g}, "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, launches {counts}, "
-        f"card {torch.cuda.get_device_name(0)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[slice] median {ms:.1f} ms/step, rungs {rungs}, xyz moved {moved:.3g}, "
+        f"peak mem {peak:.1f} GiB, launches {counts}, card {torch.cuda.get_device_name(0)}")
     profile_step(tr.train_step, ms, "profile")
-
-    os.environ["DS_FLASH_ATTN"] = "1"
-    torch.cuda.reset_peak_memory_stats()
-    ms_f, counts_f, rungs = fps_steps(tr, "slice+flash")
-    peak_f = torch.cuda.max_memory_allocated() / 2**30
-    profile_step(tr.train_step, ms_f, "profile_flash")
-    os.environ.pop("DS_FLASH_ATTN")
-    # 10 self-attention layers at n >= 1024 per UNet pass
-    expect_f = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
-    expect_f.update(k4_expect(rungs, 10, n_steps))
-    assert counts_f == expect_f, (counts_f, expect_f)
-    log(f"[slice] DS_FLASH_ATTN=1: median {ms_f:.1f} ms/step (unset: {ms:.1f}), rungs {rungs}, "
-        f"peak mem {peak_f:.1f} GiB, launches {counts_f}")
-    log(json.dumps({"slice_flash": {"ms_per_step_median": ms_f, "rungs": rungs,
-                                    "launches": counts_f}}))
     return counts, tr
 
 
@@ -657,7 +641,7 @@ def fill_zero_convs(cn, gen, scale):
 
 
 def k4_expect(rungs, per_pass, n_steps):
-    """K4 launch counts of `n_steps` gate-set guidance steps with ladders of
+    """K4 launch counts of `n_steps` guidance steps with ladders of
     `rungs` rungs: `per_pass` forwards per UNet pass (R rungs -> R+1
     passes) plus one per VAE encode, one dK/dV and one dQ per step (the
     encoder's backward); the whole path computes in bf16, so every
@@ -669,8 +653,8 @@ def k4_expect(rungs, per_pass, n_steps):
 
 def run_controlnet_steps(tr):
     """Phase 9: phase 3's trainer with a full-width ControlNet conditioning
-    every step (use_control_net_iter 0, controlnet_ratio 1), gate unset and
-    set. Returns the launch counts of both legs and the ControlNet."""
+    every step (use_control_net_iter 0, controlnet_ratio 1). Returns the
+    launch counts and the ControlNet."""
     from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.guidance import sd_modules as sdm
 
@@ -701,38 +685,29 @@ def run_controlnet_steps(tr):
     calls = {"n": 0}
     hook = cn.register_forward_hook(lambda *_: calls.__setitem__("n", calls["n"] + 1))
     n_steps = N_STEPS_WARM + N_STEPS_TIMED
-    by_gate, summary = {}, {"eps_rel_l2_with_vs_without": rel}
+    summary = {"eps_rel_l2_with_vs_without": rel}
     try:
-        for gate in ("unset", "set"):
-            if gate == "set":
-                os.environ["DS_FLASH_ATTN"] = "1"
-            torch.cuda.reset_peak_memory_stats()
-            calls["n"] = 0
-            ms, counts, rungs = fps_steps(tr, f"controlnet {gate}")
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            # every step conditioned: one ControlNet pass per UNet pass
-            assert calls["n"] == sum(r + 1 for r in rungs), (calls, rungs)
-            expect = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
-            if gate == "unset":
-                expect.update({k: 0 for k in K4 + kernels.VARIANT_NAMES})
-            else:
-                expect.update(k4_expect(rungs, 10 + 4, n_steps))
-            assert counts == expect, (gate, counts, expect)
-            by_gate[gate] = counts
-            summary[gate] = {"ms_per_step_median": ms, "rungs": rungs, "peak_mem_gib": peak,
-                             "launches": counts}
-            log(f"[controlnet] DS_FLASH_ATTN {gate}: median {ms:.1f} ms/step, rungs {rungs}, "
-                f"peak mem {peak:.1f} GiB, launches {counts}")
-            summary[gate]["profile"] = profile_step(
-                tr.train_step, ms, "controlnet_profile" + ("_flash" if gate == "set" else ""),
-                ranges=("controlnet",))
+        torch.cuda.reset_peak_memory_stats()
+        ms, counts, rungs = fps_steps(tr, "controlnet")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # every step conditioned: one ControlNet pass per UNet pass
+        assert calls["n"] == sum(r + 1 for r in rungs), (calls, rungs)
+        # K4 at the UNet's 10 and the ControlNet trunk's 4 self-attentions
+        # of n >= 1024 per pass
+        expect = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
+        expect.update(k4_expect(rungs, 10 + 4, n_steps))
+        assert counts == expect, (counts, expect)
+        summary.update({"ms_per_step_median": ms, "rungs": rungs, "peak_mem_gib": peak,
+                        "launches": counts})
+        log(f"[controlnet] median {ms:.1f} ms/step, rungs {rungs}, peak mem {peak:.1f} GiB, "
+            f"launches {counts}")
+        summary["profile"] = profile_step(tr.train_step, ms, "controlnet_profile",
+                                          ranges=("controlnet",))
     finally:
         hook.remove()
-        os.environ.pop("DS_FLASH_ATTN", None)
         g.mods.controlnet = None
     log(json.dumps({"controlnet_steps": summary}))
-    return {k: by_gate["unset"][k] + by_gate["set"][k] for k in kernels.KERNEL_NAMES}, cn
-
+    return {k: counts[k] for k in kernels.KERNEL_NAMES}, cn
 
 def fps_steps(tr, tag):
     """N_STEPS_WARM + N_STEPS_TIMED train_step()s with the launch counts
@@ -779,7 +754,7 @@ def timed_call(parts, name, fn):
 
 
 def run_train():
-    """Phase 3b: ObjectTrainer.train() at config #2 width, DS_FLASH_ATTN=1,
+    """Phase 3b: ObjectTrainer.train() at config #2 width,
     sample.yaml's cadences, steps 1497-1502, refine, videos, PLYs; and
     phase 12: the same train() ends with the mesh export
     (mode_args.export_mesh, 128^3), then extract_fields at 64^3 on its
@@ -850,7 +825,6 @@ def run_train():
 
     fa.launch_fwd = count_fwd_shape
     n0 = num_active(tr.state)
-    os.environ["DS_FLASH_ATTN"] = "1"
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     t0 = time.perf_counter()
@@ -859,7 +833,6 @@ def run_train():
     finally:
         OT.recon_step, mesh.extract_fields = recon_step, extract_fields
         fa.launch_fwd = launch_fwd
-        os.environ.pop("DS_FLASH_ATTN")
         for h in hooks:
             h.remove()
     wall = time.perf_counter() - t0
@@ -973,7 +946,7 @@ KERNEL_BUCKETS = (("flash_fwd", "K4 flash_fwd"), ("flash_bwd_dkv", "K4 flash_bwd
 
 def profile_step(step_fn, untraced_ms, tag, prefix="fps", ranges=()):
     """One more step (`step_fn()`) under torch.profiler (printed as the
-    JSON line `tag`; DS_FLASH_ATTN as the caller left it): device busy time
+    JSON line `tag`): device busy time
     by phase and by kernel family, and the device's idle share of the
     untraced median step (the traced step's own wall time is inflated by
     the profiler). A phase's time is the kernel time that starts inside its
@@ -1452,12 +1425,11 @@ def run_scene_steps(cn):
     """Phase 6: config #4 (sample_indoor.yaml as shipped, env_density 1.0):
     object_task on the written object PLYs, prepare_train_scene (compress,
     four placed instances, env and floor), then 2 + 5 stage-1 and 5 stage-2
-    steps with DS_FLASH_ATTN unset and again with it set, a profiled
-    stage-1 step each way, and K1-K3 held against their plain versions on
-    a stage-1 view of this scene and on the band of that view a rank of
-    phase 13c bins; then phase 9b, two stage-1 steps with the ControlNet
-    `cn` conditioning both, gate set. Returns the trainer, launch counts
-    by gate (and of phase 9b), kernel rows of the view and of the band,
+    steps, a profiled stage-1 step, and K1-K3 held against their plain
+    versions on a stage-1 view of this scene and on the band of that view a
+    rank of phase 13c bins; then phase 9b, two stage-1 steps with the
+    ControlNet `cn` conditioning both. Returns the trainer, launch counts
+    of the steps and of phase 9b, kernel rows of the view and of the band,
     and errors."""
     from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.bench.scenes import binned_inputs
@@ -1483,41 +1455,29 @@ def run_scene_steps(cn):
     assert len(tr.scene.objects) == 4 and census["env"]["active"] == 2_000_000
 
     c = tr.guidance_opt.C_batch_size
-    results, counts_by_gate = {}, {}
-    for gate in ("unset", "set"):
-        if gate == "set":
-            os.environ["DS_FLASH_ATTN"] = "1"
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_counts()
-        tr.step, tr.iters = 0, cfg.sceneOptimizationParams.iterations
-        tr.guidance.stage_range, tr.guidance.jump_range = (400, 850), (175, 225)
-        cams1 = tr._stage1_cams((N_SCENE_WARM + N_SCENE_TIMED) * c)
-        rec1 = scene_steps(tr, cams1, "env", N_SCENE_WARM + N_SCENE_TIMED, f"scene {gate}")
-        tr.step, tr.iters = 0, max(cfg.sceneOptimizationParams.iterations - 300, 1)
-        tr.guidance.stage_range, tr.guidance.jump_range = (350, 750), (150, 200)
-        rec2 = scene_steps(tr, tr._stage2_cams(N_SCENE_TIMED * c), "floor", N_SCENE_TIMED,
-                           f"scene {gate}")
-        counts = dict(kernels.COUNTS)
-        n_steps = len(rec1) + len(rec2)
-        expect = {k: c * n_steps for k in K1_K3}
-        if gate == "unset":
-            expect.update({k: 0 for k in K4 + kernels.VARIANT_NAMES})
-        else:
-            expect.update(k4_expect([r["n_rungs"] for r in rec1 + rec2], 10, n_steps))
-        assert counts == expect, (gate, counts, expect)
-        counts_by_gate[gate] = counts
-        ms1 = float(np.median([r["ms"] for r in rec1[N_SCENE_WARM:]]))
-        ms2 = float(np.median([r["ms"] for r in rec2]))
-        results[gate] = {"stage1_ms_median": ms1, "stage2_ms_median": ms2,
-                         "stage1": rec1, "stage2": rec2, "launches": counts,
-                         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-                         "models": scene_census(tr)}
-        log(json.dumps({f"scene_steps_{gate}": results[gate]}))
-        cams_p = tr._stage1_cams(c)
-        tr.step, tr.iters = 1, cfg.sceneOptimizationParams.iterations
-        profile_step(lambda: tr.scene_train_step(cams_p[:c], "env"), ms1,
-                     "scene_profile" if gate == "unset" else "scene_profile_flash", "scene")
-        os.environ.pop("DS_FLASH_ATTN", None)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    tr.step, tr.iters = 0, cfg.sceneOptimizationParams.iterations
+    tr.guidance.stage_range, tr.guidance.jump_range = (400, 850), (175, 225)
+    cams1 = tr._stage1_cams((N_SCENE_WARM + N_SCENE_TIMED) * c)
+    rec1 = scene_steps(tr, cams1, "env", N_SCENE_WARM + N_SCENE_TIMED, "scene")
+    tr.step, tr.iters = 0, max(cfg.sceneOptimizationParams.iterations - 300, 1)
+    tr.guidance.stage_range, tr.guidance.jump_range = (350, 750), (150, 200)
+    rec2 = scene_steps(tr, tr._stage2_cams(N_SCENE_TIMED * c), "floor", N_SCENE_TIMED, "scene")
+    counts = {"steps": dict(kernels.COUNTS)}
+    n_steps = len(rec1) + len(rec2)
+    expect = {k: c * n_steps for k in K1_K3}
+    expect.update(k4_expect([r["n_rungs"] for r in rec1 + rec2], 10, n_steps))
+    assert counts["steps"] == expect, (counts["steps"], expect)
+    ms1 = float(np.median([r["ms"] for r in rec1[N_SCENE_WARM:]]))
+    ms2 = float(np.median([r["ms"] for r in rec2]))
+    log(json.dumps({"scene_steps": {"stage1_ms_median": ms1, "stage2_ms_median": ms2,
+                                    "stage1": rec1, "stage2": rec2, "launches": counts["steps"],
+                                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                                    "models": scene_census(tr)}}))
+    cams_p = tr._stage1_cams(c)
+    tr.step, tr.iters = 1, cfg.sceneOptimizationParams.iterations
+    profile_step(lambda: tr.scene_train_step(cams_p[:c], "env"), ms1, "scene_profile", "scene")
 
     names = list(tr.scene.objects)
     sts = tr._states(names)
@@ -1536,14 +1496,14 @@ def run_scene_steps(cn):
                                  timing=True)
     errs = {k: max(errs[k], e[k]) for k in K1_K3}
     del combined, inp
-    counts_by_gate["controlnet"] = scene_controlnet_steps(tr, cn)
-    return tr, counts_by_gate, rows, band_rows, errs
+    counts["controlnet"] = scene_controlnet_steps(tr, cn)
+    return tr, counts, rows, band_rows, errs
 
 
 def scene_controlnet_steps(tr, cn, n=2):
     """Phase 9b: `n` config #4 stage-1 steps with the ControlNet `cn`
-    conditioning each (use_control_net_iter 0, controlnet_ratio 1), gate
-    set; the guidance is left as it was found."""
+    conditioning each (use_control_net_iter 0, controlnet_ratio 1); the
+    guidance is left as it was found."""
     from dreamscene_tpu_torch import kernels
 
     g, optp = tr.guidance, tr.cfg.sceneOptimizationParams
@@ -1552,7 +1512,6 @@ def scene_controlnet_steps(tr, cn, n=2):
     optp.use_control_net_iter, g.guidance_opt.controlnet_ratio = 0, 1.0
     calls = {"n": 0}
     hook = cn.register_forward_hook(lambda *_: calls.__setitem__("n", calls["n"] + 1))
-    os.environ["DS_FLASH_ATTN"] = "1"
     try:
         c = tr.guidance_opt.C_batch_size
         tr.step, tr.iters = 0, optp.iterations
@@ -1563,7 +1522,6 @@ def scene_controlnet_steps(tr, cn, n=2):
         counts = dict(kernels.COUNTS)
     finally:
         hook.remove()
-        os.environ.pop("DS_FLASH_ATTN")
         g.mods.controlnet = None
         optp.use_control_net_iter, g.guidance_opt.controlnet_ratio = saved
     rungs = [r["n_rungs"] for r in recs]
@@ -1579,7 +1537,7 @@ def scene_controlnet_steps(tr, cn, n=2):
 
 def run_scene_train(guidance, exp_root):
     """Phase 7: SceneTrainer.train(n_stage3=1, make_videos=True) at config
-    #4 width with DS_FLASH_ATTN=1: sceneOptimizationParams.iterations=3
+    #4 width: sceneOptimizationParams.iterations=3
     (3 stage-1 steps, 1 stage-2 step), one 80-camera pseudo-GT bank and its
     recon steps, the final videos and scene_final_model.ply; then a second
     train() that resumes at stage 3 and trains nothing. Returns the
@@ -1602,7 +1560,6 @@ def run_scene_train(guidance, exp_root):
     save_ply, scene_step = ST.save_splat_ply, ST.scene_step
     ST.save_splat_ply = timed("final PLY", save_ply)
     ST.scene_step = timed("scene_step (all stages)", scene_step)
-    os.environ["DS_FLASH_ATTN"] = "1"
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     t0 = time.perf_counter()
@@ -1610,7 +1567,6 @@ def run_scene_train(guidance, exp_root):
         combined = tr.train(n_stage3=1, make_videos=True)
     finally:
         ST.save_splat_ply, ST.scene_step = save_ply, scene_step
-        os.environ.pop("DS_FLASH_ATTN")
     wall = time.perf_counter() - t0
     counts = dict(kernels.COUNTS)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1800,7 +1756,7 @@ def outdoor_trainer(guidance, exp_root, overrides=()):
 
 def run_outdoor_steps(guidance):
     """Phases 15a-15c: config #5 (sample_outdoor.yaml as shipped, env
-    density 1.0, DS_FLASH_ATTN=1). 15a: the two objects written as finished
+    density 1.0). 15a: the two objects written as finished
     PLYs (20K splats each; point-e never runs), object_task, then
     prepare_train_scene (compress, the two placements, the env shell and
     floor disk), the census held to the init formula. 15b: 2 + 5 stage-1
@@ -1841,41 +1797,37 @@ def run_outdoor_steps(guidance):
     assert census["floor"]["capacity"] == int(n_floor * 1.5)
 
     c, g = tr.guidance_opt.C_batch_size, tr.guidance
-    os.environ["DS_FLASH_ATTN"] = "1"
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_counts()
-        tr.step, tr.iters = 0, cfg.sceneOptimizationParams.iterations
-        g.stage_range, g.jump_range = (400, 850), (175, 225)      # MTSD's, as train() finds them
-        cams1 = tr._stage1_cams((N_SCENE_WARM + N_SCENE_TIMED) * c)
-        rec1 = scene_steps(tr, cams1, "env", N_SCENE_WARM + N_SCENE_TIMED, "outdoor",
-                           only_env=True)
-        # train()'s outdoor stage 2: the pool drawn at (350, 800), the steps
-        # run at (350, 750) (the JAX package's train() sets both, in that order)
-        tr.step, tr.iters = 0, max(cfg.sceneOptimizationParams.iterations - 300, 1)
-        g.stage_range, g.jump_range = (350, 800), (150, 200)
-        cams2 = tr._stage2_cams(N_SCENE_TIMED * c)
-        g.stage_range = (350, 750)
-        rec2 = scene_steps(tr, cams2, "floor", N_SCENE_TIMED, "outdoor")
-        counts = dict(kernels.COUNTS)
-        n_steps = len(rec1) + len(rec2)
-        expect = {k: c * n_steps for k in K1_K3}
-        expect.update(k4_expect([x["n_rungs"] for x in rec1 + rec2], 10, n_steps))
-        assert counts == expect, (counts, expect)
-        ms1 = float(np.median([x["ms"] for x in rec1[N_SCENE_WARM:]]))
-        ms2 = float(np.median([x["ms"] for x in rec2]))
-        log(json.dumps({"outdoor_steps": {
-            "stage1_ms_median": ms1, "stage2_ms_median": ms2, "stage1": rec1, "stage2": rec2,
-            "launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "models": scene_census(tr)}}))
-        assert all(x["n_entries"] > 0 for x in rec1 + rec2)
-        cams_p = tr._stage1_cams(c)
-        tr.step, tr.iters = 1, cfg.sceneOptimizationParams.iterations
-        g.stage_range, g.jump_range = (400, 850), (175, 225)
-        profile_step(lambda: tr.scene_train_step(cams_p[:c], "env", only_env=True), ms1,
-                     "outdoor_profile_flash", "scene")
-    finally:
-        os.environ.pop("DS_FLASH_ATTN", None)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    tr.step, tr.iters = 0, cfg.sceneOptimizationParams.iterations
+    g.stage_range, g.jump_range = (400, 850), (175, 225)      # MTSD's, as train() finds them
+    cams1 = tr._stage1_cams((N_SCENE_WARM + N_SCENE_TIMED) * c)
+    rec1 = scene_steps(tr, cams1, "env", N_SCENE_WARM + N_SCENE_TIMED, "outdoor",
+                       only_env=True)
+    # train()'s outdoor stage 2: the pool drawn at (350, 800), the steps
+    # run at (350, 750) (the JAX package's train() sets both, in that order)
+    tr.step, tr.iters = 0, max(cfg.sceneOptimizationParams.iterations - 300, 1)
+    g.stage_range, g.jump_range = (350, 800), (150, 200)
+    cams2 = tr._stage2_cams(N_SCENE_TIMED * c)
+    g.stage_range = (350, 750)
+    rec2 = scene_steps(tr, cams2, "floor", N_SCENE_TIMED, "outdoor")
+    counts = dict(kernels.COUNTS)
+    n_steps = len(rec1) + len(rec2)
+    expect = {k: c * n_steps for k in K1_K3}
+    expect.update(k4_expect([x["n_rungs"] for x in rec1 + rec2], 10, n_steps))
+    assert counts == expect, (counts, expect)
+    ms1 = float(np.median([x["ms"] for x in rec1[N_SCENE_WARM:]]))
+    ms2 = float(np.median([x["ms"] for x in rec2]))
+    log(json.dumps({"outdoor_steps": {
+        "stage1_ms_median": ms1, "stage2_ms_median": ms2, "stage1": rec1, "stage2": rec2,
+        "launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "models": scene_census(tr)}}))
+    assert all(x["n_entries"] > 0 for x in rec1 + rec2)
+    cams_p = tr._stage1_cams(c)
+    tr.step, tr.iters = 1, cfg.sceneOptimizationParams.iterations
+    g.stage_range, g.jump_range = (400, 850), (175, 225)
+    profile_step(lambda: tr.scene_train_step(cams_p[:c], "env", only_env=True), ms1,
+                 "outdoor_profile_flash", "scene")
 
     names = list(tr.scene.objects)
     view1 = cams1[0]
@@ -1904,7 +1856,7 @@ def run_outdoor_train(guidance, exp_root):
     """Phase 15d: SceneTrainer.train(n_stage3=1, make_videos=True,
     video_every=3) on phase 15a's scene (config #5), cut as phase 7 cuts
     config #4: sceneOptimizationParams.iterations=3 (3 stage-1 steps of
-    floor + env, 1 stage-2 step), DS_FLASH_ATTN=1. Covers the only-env
+    floor + env, 1 stage-2 step). Covers the only-env
     videos (after the third stage-1 step and after the stage-2 step), the
     stage checkpoints, the 80-camera Stage3_Outdoor("env") + Stage2_Outdoor
     pseudo-GT bank of floor + env and its floor-only recon steps (env and
@@ -1943,7 +1895,6 @@ def run_outdoor_train(guidance, exp_root):
     save_ply, scene_step = ST.save_splat_ply, ST.scene_step
     ST.save_splat_ply = timed("final PLY", save_ply)
     ST.scene_step = timed("scene_step (all stages)", scene_step)
-    os.environ["DS_FLASH_ATTN"] = "1"
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     t0 = time.perf_counter()
@@ -1951,7 +1902,6 @@ def run_outdoor_train(guidance, exp_root):
         combined = tr.train(n_stage3=1, make_videos=True, video_every=3)
     finally:
         ST.save_splat_ply, ST.scene_step = save_ply, scene_step
-        os.environ.pop("DS_FLASH_ATTN")
     wall = time.perf_counter() - t0
     counts = dict(kernels.COUNTS)
 
@@ -2254,7 +2204,7 @@ def reckon_peak(label, single_peak, weights_gib, share):
 
 
 def run_mesh_objects():
-    """Phase 13b: phase 3's object (config #2 width, DS_FLASH_ATTN=1) on
+    """Phase 13b: phase 3's object (config #2 width) on
     four ranks, dp 2 x tp 2, sharing cuda:0 over gloo. The parent takes
     one step alone on explicit inputs and frees the card; each rank then
     takes the same step on the mesh (held against it: loss rtol 1e-3 /
@@ -2277,46 +2227,42 @@ def run_mesh_objects():
     from dreamscene_tpu_torch.training.object_trainer import ObjectTrainer, fps_step
 
     d = Path(fresh_dir("mesh_objects"))
-    os.environ["DS_FLASH_ATTN"] = "1"
-    try:
-        cfg = slice_cfg()
-        guidance = sd21_guidance(cfg.guidanceParams, dtype=torch.float32)
-        weights_gib = weight_gib(guidance.mods)
-        tr = ObjectTrainer(cfg, guidance=guidance, exp_root=str(d / "single"), device="cuda")
-        tr.prepare_train()
-        inp = tr.step_inputs()
-        torch.cuda.reset_peak_memory_stats()
-        res = fps_step(**inp)
-        single_peak = torch.cuda.max_memory_allocated() / 2**30
-        ref = dict(loss=float(res["loss"]), grads={k: v.cpu() for k, v in res["grads"].items()})
-        step = {k: v for k, v in inp.items() if k not in ("mods", "mesh")}
-        torch.save(dict(step=step, weight_sum=weight_sum(guidance.mods)), d / "inputs.pt")
-        del tr, guidance, res
-        torch.cuda.empty_cache()
-        # the same step in bf16, as the ranks' timed steps run it
-        mods = sd21_guidance(cfg.guidanceParams).mods
-        res = fps_step(**dict(inp, mods=mods))
-        ref_bf16 = dict(loss=float(res["loss"]),
-                        grads={k: v.cpu() for k, v in res["grads"].items()})
-        del res
-        # the dp split taken in this process: the batching alone
-        split = [fps_step(**dict(inp, mods=mods, mesh=DpShare(2, i))) for i in range(2)]
-        split_bf16 = dict(loss=sum(float(r["loss"]) for r in split),
-                          grads={k: sum(r["grads"][k].cpu() for r in split)
-                                 for k in ref_bf16["grads"]})
-        del split
-        single = mesh_step(lambda: fps_step(**dict(inp, mods=mods))["loss"])
-        single["busy_ms"] = busy_ms(lambda: fps_step(**dict(inp, mods=mods)))
-        del mods, inp, step
-        torch.cuda.empty_cache()
-        est = reckon_peak("object mesh, float32 step (b_local 2 of C_batch 4)", single_peak,
-                          weights_gib, 0.5)
-        t0 = time.perf_counter()
-        run_ranks(mesh_object_rank, 4, (str(d),), store_dir=str(d), device="cuda:0",
-                  timeout_s=MESH_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-    finally:
-        os.environ.pop("DS_FLASH_ATTN", None)
+    cfg = slice_cfg()
+    guidance = sd21_guidance(cfg.guidanceParams, dtype=torch.float32)
+    weights_gib = weight_gib(guidance.mods)
+    tr = ObjectTrainer(cfg, guidance=guidance, exp_root=str(d / "single"), device="cuda")
+    tr.prepare_train()
+    inp = tr.step_inputs()
+    torch.cuda.reset_peak_memory_stats()
+    res = fps_step(**inp)
+    single_peak = torch.cuda.max_memory_allocated() / 2**30
+    ref = dict(loss=float(res["loss"]), grads={k: v.cpu() for k, v in res["grads"].items()})
+    step = {k: v for k, v in inp.items() if k not in ("mods", "mesh")}
+    torch.save(dict(step=step, weight_sum=weight_sum(guidance.mods)), d / "inputs.pt")
+    del tr, guidance, res
+    torch.cuda.empty_cache()
+    # the same step in bf16, as the ranks' timed steps run it
+    mods = sd21_guidance(cfg.guidanceParams).mods
+    res = fps_step(**dict(inp, mods=mods))
+    ref_bf16 = dict(loss=float(res["loss"]),
+                    grads={k: v.cpu() for k, v in res["grads"].items()})
+    del res
+    # the dp split taken in this process: the batching alone
+    split = [fps_step(**dict(inp, mods=mods, mesh=DpShare(2, i))) for i in range(2)]
+    split_bf16 = dict(loss=sum(float(r["loss"]) for r in split),
+                      grads={k: sum(r["grads"][k].cpu() for r in split)
+                             for k in ref_bf16["grads"]})
+    del split
+    single = mesh_step(lambda: fps_step(**dict(inp, mods=mods))["loss"])
+    single["busy_ms"] = busy_ms(lambda: fps_step(**dict(inp, mods=mods)))
+    del mods, inp, step
+    torch.cuda.empty_cache()
+    est = reckon_peak("object mesh, float32 step (b_local 2 of C_batch 4)", single_peak,
+                      weights_gib, 0.5)
+    t0 = time.perf_counter()
+    run_ranks(mesh_object_rank, 4, (str(d),), store_dir=str(d), device="cuda:0",
+              timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
     outs = [torch.load(d / f"out_{r}.pt", weights_only=False) for r in range(4)]
 
     par = [o["parity"] for o in outs]
@@ -2472,7 +2418,7 @@ def mesh_scene_rank(rank, world, d):
 
 
 def run_mesh_scene():
-    """Phase 13c: config #4 (phase 6's scene, DS_FLASH_ATTN=1) on two ranks,
+    """Phase 13c: config #4 (phase 6's scene) on two ranks,
     dp 1 x tp 2 with shard_splats, sharing cuda:0 over gloo. The parent
     takes one stage-1 step alone and frees the card; each rank takes the
     same step (held against it: loss rtol 1e-3, the env's gradient within
@@ -2485,42 +2431,38 @@ def run_mesh_scene():
     from dreamscene_tpu_torch.training.scene_trainer import SceneTrainer, scene_step
 
     d = Path(fresh_dir("mesh_scene"))
-    os.environ["DS_FLASH_ATTN"] = "1"
-    try:
-        writer = SceneTrainer(mesh_scene_cfg(), exp_root=str(d / "single"), device="cuda",
-                              guidance=None, env_density=1.0)
-        write_scene_objects(writer)
-        (d / "mesh" / "scene" / "checkpoints").mkdir(parents=True)
-        for f in writer.ckpt_path.glob("*_final_model.ply"):
-            shutil.copy(f, d / "mesh" / "scene" / "checkpoints" / f.name)
-        del writer
-        tr, cams, inp = mesh_scene_trainer(d / "single", 1, 1, "cuda")
-        weights_gib = weight_gib(tr.guidance.mods)
-        torch.cuda.reset_peak_memory_stats()
-        res = scene_step(**inp["args"])
-        single_peak = torch.cuda.max_memory_allocated() / 2**30
-        ref = dict(loss=float(res["loss"]), env_grads={k: v.cpu()
-                                                       for k, v in res["grads"][-1].items()})
-        torch.save(dict(weight_sum=weight_sum(tr.guidance.mods),
-                        noise_sum=float(inp["args"]["noise"].double().sum())),
-                   d / "fingerprint.pt")
-        tr.guidance = res = None
-        torch.cuda.empty_cache()
-        # the same step in bf16, as the ranks' timed steps run it
-        args = dict(inp["args"], mods=sd21_guidance(tr.guidance_opt).mods)
-        scene_step(**args)                              # warm-up
-        single = mesh_step(lambda: scene_step(**args)["loss"])
-        single["busy_ms"] = busy_ms(lambda: scene_step(**args))
-        del tr, cams, inp, args
-        torch.cuda.empty_cache()
-        est = reckon_peak("scene mesh, float32 step (tp 2, state and band tables halved)",
-                          single_peak, weights_gib, 0.5)
-        t0 = time.perf_counter()
-        run_ranks(mesh_scene_rank, 2, (str(d),), store_dir=str(d), device="cuda:0",
-                  timeout_s=MESH_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-    finally:
-        os.environ.pop("DS_FLASH_ATTN", None)
+    writer = SceneTrainer(mesh_scene_cfg(), exp_root=str(d / "single"), device="cuda",
+                          guidance=None, env_density=1.0)
+    write_scene_objects(writer)
+    (d / "mesh" / "scene" / "checkpoints").mkdir(parents=True)
+    for f in writer.ckpt_path.glob("*_final_model.ply"):
+        shutil.copy(f, d / "mesh" / "scene" / "checkpoints" / f.name)
+    del writer
+    tr, cams, inp = mesh_scene_trainer(d / "single", 1, 1, "cuda")
+    weights_gib = weight_gib(tr.guidance.mods)
+    torch.cuda.reset_peak_memory_stats()
+    res = scene_step(**inp["args"])
+    single_peak = torch.cuda.max_memory_allocated() / 2**30
+    ref = dict(loss=float(res["loss"]), env_grads={k: v.cpu()
+                                                   for k, v in res["grads"][-1].items()})
+    torch.save(dict(weight_sum=weight_sum(tr.guidance.mods),
+                    noise_sum=float(inp["args"]["noise"].double().sum())),
+               d / "fingerprint.pt")
+    tr.guidance = res = None
+    torch.cuda.empty_cache()
+    # the same step in bf16, as the ranks' timed steps run it
+    args = dict(inp["args"], mods=sd21_guidance(tr.guidance_opt).mods)
+    scene_step(**args)                              # warm-up
+    single = mesh_step(lambda: scene_step(**args)["loss"])
+    single["busy_ms"] = busy_ms(lambda: scene_step(**args))
+    del tr, cams, inp, args
+    torch.cuda.empty_cache()
+    est = reckon_peak("scene mesh, float32 step (tp 2, state and band tables halved)",
+                      single_peak, weights_gib, 0.5)
+    t0 = time.perf_counter()
+    run_ranks(mesh_scene_rank, 2, (str(d),), store_dir=str(d), device="cuda:0",
+              timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
     outs = [torch.load(d / f"out_{r}.pt", weights_only=False) for r in range(2)]
     rel = {k: max(rel_l2(o["parity"]["env_grads"][k], g) for o in outs)
            for k, g in ref["env_grads"].items() if k != "background"}
@@ -2649,7 +2591,7 @@ def run_single_cam(tr):
 def run_denoise(guidance):
     """Phase 14c: mtsd.denoise_ladder at full width on phase 3's
     SD2.1-architecture stack (bf16, seeded weights): 64x64 latents, batch
-    1, 3 rungs, DS_FLASH_ATTN=1; K4 forward launches checked (10 per UNet
+    1, 3 rungs; K4 forward launches checked (10 per UNet
     pass, every one the tensor-core variant), the walk timed; K4 held
     against its plain versions at the walk's shapes; then the tiny stack's
     walk, card against CPU in float32 (atol 1e-4). Returns (launch counts
@@ -2667,18 +2609,14 @@ def run_denoise(guidance):
     def walk():
         return mtsd.denoise_ladder(guidance.mods, lat, noise, ts, emb, n_rungs=len(ts), cfg=7.5)
 
-    os.environ["DS_FLASH_ATTN"] = "1"
-    try:
-        walk()
-        torch.cuda.synchronize()
-        kernels.reset_counts()
-        t0 = time.perf_counter()
-        scores = walk()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        counts = dict(kernels.COUNTS)
-    finally:
-        os.environ.pop("DS_FLASH_ATTN", None)
+    walk()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    scores = walk()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(kernels.COUNTS)
     n_fwd = 10 * len(ts)
     expect = {k: 0 for k in kernels.KERNEL_NAMES + kernels.VARIANT_NAMES}
     expect.update({"flash_fwd": n_fwd, "flash_fwd.tc": n_fwd})
@@ -2714,22 +2652,18 @@ def run_denoise(guidance):
 
 
 def run_trace(tr):
-    """Phase 14d: one gate-set FPS step of phase 3's trainer inside
+    """Phase 14d: one FPS step of phase 3's trainer inside
     utils/profiling.trace; the Chrome trace it writes must name every K1-K4
     kernel symbol the step launches. Returns the step's launch counts."""
     from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.utils import profiling
 
     d = fresh_dir("trace")
-    os.environ["DS_FLASH_ATTN"] = "1"
-    try:
-        kernels.reset_counts()
-        with profiling.trace(d):
-            loss = tr.train_step()
-            torch.cuda.synchronize()
-        counts = dict(kernels.COUNTS)
-    finally:
-        os.environ.pop("DS_FLASH_ATTN", None)
+    kernels.reset_counts()
+    with profiling.trace(d):
+        loss = tr.train_step()
+        torch.cuda.synchronize()
+    counts = dict(kernels.COUNTS)
     assert math.isfinite(loss)
     (path,) = glob.glob(os.path.join(d, "*.json"))
     with open(path) as f:
@@ -3017,10 +2951,10 @@ def main():
     by_path["composition_render"], comp_rows, e = run_composition()
     errs.update({k: max(errs[k], v) for k, v in e.items()})
     mark("phase 5")
-    tr, gates, scene_rows, scene_band_rows, e = run_scene_steps(cn)
+    tr, scene_counts, scene_rows, scene_band_rows, e = run_scene_steps(cn)
     errs.update({k: max(errs[k], v) for k, v in e.items()})
-    by_path["scene_steps"] = {k: gates["unset"][k] + gates["set"][k] for k in kernels.KERNEL_NAMES}
-    by_path["controlnet_scene_steps"] = {k: gates["controlnet"][k] for k in kernels.KERNEL_NAMES}
+    for path, key in (("scene_steps", "steps"), ("controlnet_scene_steps", "controlnet")):
+        by_path[path] = {k: scene_counts[key][k] for k in kernels.KERNEL_NAMES}
     mark("phases 6 and 9b")
     by_path["single_cam_render"], single_rows, e = run_single_cam(tr)
     errs.update({k: max(errs[k], v) for k, v in e.items()})

@@ -10,12 +10,16 @@ Modules work in NCHW. Parameters are float32; each layer computes in the
 config's dtype (bf16 for the SD2.1/VAE configs, f32 for the tiny ones) by
 casting its input and weights, as the Flax modules do. Normalizations
 compute in float32 with epsilon 1e-6 (Flax's default); GELU is the tanh
-approximation (Flax's default). Attention is a plain matmul + float32
-softmax, as the JAX package leaves it to XLA by default; with
-DS_FLASH_ATTN=1 on the card, self-attention of 1024+ tokens goes through
-the K4 flash-attention kernels instead (ops/flash_attention.py, the gate
-of sd_flax.py:102-117), in `Attention` and `VAEAttention` alike, and so
-in the ControlNet's trunk, which reuses the UNet's classes.
+approximation (Flax's default). Attention takes one path per shape and
+device (`ops/flash_attention.use_flash_attention`): on the card, every
+self-attention of 1024+ tokens whose head dim K4 takes goes through the
+K4 flash-attention kernels, in `Attention` and `VAEAttention` alike, and
+so in the ControlNet's trunk, which reuses the UNet's classes; CPU
+tensors and the shapes the gate refuses (cross-attention, the small
+latent levels) take a plain matmul + float32 softmax, as the JAX package
+leaves it to XLA. Either core, from the scores (or the K4 call) to the
+P.V output, runs inside a `sd.attention` profiler range; the projections
+stay outside it.
 """
 
 from __future__ import annotations
@@ -182,12 +186,13 @@ class Attention(nn.Module):
         k = self.to_k(context).reshape(b, m, self.heads, self.head_dim).transpose(1, 2)
         v = self.to_v(context).reshape(b, m, self.heads, self.head_dim).transpose(1, 2)
         scale = self.head_dim**-0.5
-        if fa.use_flash_attention(n, m, x.device):
-            out = fa.flash_attention(q, k, v, scale).to(self.dt)
-        else:
-            attn = torch.matmul(q * scale, k.transpose(-1, -2))
-            attn = torch.softmax(attn.float(), dim=-1).to(self.dt)
-            out = torch.matmul(attn, v)
+        with torch.profiler.record_function("sd.attention"):
+            if fa.use_flash_attention(n, m, self.head_dim, x.device):
+                out = fa.flash_attention(q, k, v, scale).to(self.dt)
+            else:
+                attn = torch.matmul(q * scale, k.transpose(-1, -2))
+                attn = torch.softmax(attn.float(), dim=-1).to(self.dt)
+                out = torch.matmul(attn, v)
         return self.to_out[0](out.transpose(1, 2).reshape(b, n, -1))
 
 
@@ -475,14 +480,16 @@ class VAEAttention(nn.Module):
         b, c, h, w = x.shape
         y = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
-        if fa.use_flash_attention(h * w, h * w, x.device):
-            # single head, head_dim = c; the VAE encoder is differentiated
-            # in the FPS step, through the kernels' backward
-            y = fa.flash_attention(q[:, None], k[:, None], v[:, None], c**-0.5)[:, 0].to(self.dt)
-        else:
-            attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float() * c**-0.5,
-                                 dim=-1).to(self.dt)
-            y = torch.matmul(attn, v)
+        with torch.profiler.record_function("sd.attention"):
+            if fa.use_flash_attention(h * w, h * w, c, x.device):
+                # single head, head_dim = c; the VAE encoder is differentiated
+                # in the FPS step, through the kernels' backward
+                y = fa.flash_attention(q[:, None], k[:, None], v[:, None],
+                                       c**-0.5)[:, 0].to(self.dt)
+            else:
+                attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float() * c**-0.5,
+                                     dim=-1).to(self.dt)
+                y = torch.matmul(attn, v)
         y = self.to_out[0](y)
         return x + y.reshape(b, h, w, c).permute(0, 3, 1, 2)
 

@@ -42,15 +42,22 @@ returns o laid out as [b, n, h, d], so `o.transpose(1, 2).reshape(b, n,
 h*d)` is a view too. The backward kernels want contiguous heads; the
 autograd Function copies only the tensors that are not (none at h = 1).
 
-`use_flash_attention(n, m, device)` is the gate of sd_flax.py:102-117:
-DS_FLASH_ATTN == "1" (read at call time), n == m, n >= 1024, n % 128 == 0,
-and a CUDA device where the JAX package asks for a TPU.
+`use_flash_attention(n, m, d, device)` is the one gate for both SD
+attention modules, decided by what the call can observe: a CUDA device,
+self-attention (n == m) of n >= 1024 tokens with n % 128 == 0, and a head
+dim the kernels take (at most 128, or a multiple of 128 up to
+MAX_HEAD_DIM), so a shape it admits never makes `check_shapes` raise.
+Every such call on the card launches K4; there is no knob. The JAX
+package's gate (sd_flax.py:102-117) defaults to its plain path because
+XLA fuses that path on the TPU; eager PyTorch on the card fuses nothing,
+and there the plain path writes the whole score matrix out. CPU tensors
+and the shapes the gate refuses (cross-attention, the 16x16 and 8x8
+latent levels) keep the modules' plain matmul + float32 softmax.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 
 import torch
 
@@ -70,11 +77,12 @@ _SCALAR_DQ = {64: (128, 64, 64), 128: (128, 32, 32), 256: (256, 32, 32), 512: (2
 _TC_DQ = {64: (128, 64, 64), 128: (256, 64, 64), 256: (256, 64, 32), 512: (256, 64, 16)}
 
 
-def use_flash_attention(n: int, m: int, device) -> bool:
-    if os.environ.get("DS_FLASH_ATTN") != "1":
-        return False
-    return (n == m and n >= 1024 and n % 128 == 0
-            and torch.device(device).type == "cuda")
+def use_flash_attention(n: int, m: int, d: int, device) -> bool:
+    """True when softmax(q k^T) v over n queries, m keys and head dim d
+    goes through K4: on a CUDA device, for every shape the kernels take
+    that is self-attention of 1024 tokens or more."""
+    return (torch.device(device).type == "cuda" and n == m and n >= 1024 and n % 128 == 0
+            and (d <= 128 or d % 128 == 0) and d <= MAX_HEAD_DIM)
 
 
 def head_bucket(d: int) -> int:

@@ -84,18 +84,30 @@ def test_flash_attention_matches_jax_kernel(shape, dtype):
             assert (err > _bf16_ulp(b)).mean() <= 1e-3, (name, int((err > _bf16_ulp(b)).sum()))
 
 
-def test_gate(monkeypatch):
-    monkeypatch.delenv("DS_FLASH_ATTN", raising=False)
-    assert not fa.use_flash_attention(4096, 4096, "cuda")
-    monkeypatch.setenv("DS_FLASH_ATTN", "0")
-    assert not fa.use_flash_attention(4096, 4096, "cuda")
-    monkeypatch.setenv("DS_FLASH_ATTN", "1")
-    assert fa.use_flash_attention(4096, 4096, "cuda")
-    assert fa.use_flash_attention(1024, 1024, torch.device("cuda", 0))
-    assert not fa.use_flash_attention(4096, 77, "cuda")      # cross-attention
-    assert not fa.use_flash_attention(896, 896, "cuda")      # n < 1024
-    assert not fa.use_flash_attention(1100, 1100, "cuda")    # n % 128 != 0
-    assert not fa.use_flash_attention(4096, 4096, "cpu")     # only on the card
+@pytest.mark.parametrize("env", [None, "0", "1"])
+def test_gate(monkeypatch, env):
+    """The gate reads shape and device alone: DS_FLASH_ATTN, set or not,
+    changes nothing; a shape it admits is one K4's limits take."""
+    if env is None:
+        monkeypatch.delenv("DS_FLASH_ATTN", raising=False)
+    else:
+        monkeypatch.setenv("DS_FLASH_ATTN", env)
+    assert fa.use_flash_attention(4096, 4096, 64, "cuda")
+    assert fa.use_flash_attention(1024, 1024, 64, torch.device("cuda", 0))
+    assert fa.use_flash_attention(4096, 4096, 512, "cuda")     # the VAE's single head
+    assert fa.use_flash_attention(4096, 4096, 16, "cuda")      # the tiny stacks'
+    assert not fa.use_flash_attention(4096, 77, 64, "cuda")    # cross-attention
+    assert not fa.use_flash_attention(896, 896, 64, "cuda")    # n < 1024
+    assert not fa.use_flash_attention(1100, 1100, 64, "cuda")  # n % 128 != 0
+    assert not fa.use_flash_attention(4096, 4096, 64, "cpu")   # only on the card
+    for d in (160, 192, 640, 1024):                            # head dims K4 refuses
+        assert not fa.use_flash_attention(4096, 4096, d, "cuda")
+    # every admitted shape passes the kernels' own limits
+    for n in (1024, 1152, 4096):
+        for d in (16, 40, 64, 128, 160, 256, 384, 512, 640):
+            if fa.use_flash_attention(n, n, d, "cuda"):
+                x = torch.zeros((1, 1, n, d))
+                fa.check_shapes(x, x, x)
 
 
 @pytest.mark.parametrize("shape,dtype", [((1, 1, 200, 64), torch.float32),
@@ -201,7 +213,7 @@ def test_strided_views_match_contiguous():
 
 def _force_flash(monkeypatch):
     monkeypatch.setattr(sd_flax, "_use_flash_attention", lambda n, m: True)
-    monkeypatch.setattr(fa, "use_flash_attention", lambda n, m, device: True)
+    monkeypatch.setattr(fa, "use_flash_attention", lambda n, m, d, device: True)
 
 
 def _dense(sd, key, p, bias=True):

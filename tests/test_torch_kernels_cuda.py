@@ -7,6 +7,8 @@ without a card. On the card:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 """
 
+import math
+
 import pytest
 import torch
 
@@ -294,3 +296,111 @@ def test_flash_fwd_strided_views(card):
     bad = views[0].transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError):
         fa.flash_fwd(bad, views[1], views[2], d**-0.5)
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bfloat16 ulp at magnitude x."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0**-126))) - 7)
+
+
+def _attention_ref(q, k, v, scale):
+    """softmax(scale q k^T) v in float32, one batch row at a time."""
+    return torch.cat([torch.softmax(q[i:i + 1].float() @ k[i:i + 1].float().transpose(-1, -2)
+                                    * scale, -1) @ v[i:i + 1].float()
+                      for i in range(q.shape[0])])
+
+
+# SD 2.1's self-attention at the 64x64 latent (12 = 3 prompts x 4 cameras,
+# 5 heads of 64) and the VAE mid block's single head of 512 at 64x64
+@pytest.mark.parametrize("kind", ["unet", "vae"])
+def test_attention_block_through_the_gate(card, kind, monkeypatch):
+    """The block's core on the card through the gate launches K4 once and
+    equals the K4 plain version on the same operands within one bf16 ulp
+    at the output's scale (the CPU tests' bound against the JAX kernel;
+    the kernels tile otherwise, so the per-element bound of equal blocking
+    does not apply). Against a float32 softmax of the same bf16 operands,
+    it is no further off than the module's plain branch, which rounds the
+    scores to bf16 first."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.guidance import sd_modules as sdm
+    from dreamscene_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    with torch.device("cuda"):
+        if kind == "unet":
+            b, h, n, d = 12, 5, 4096, 64
+            mod = sdm.init_random_(sdm.Attention(h * d, h, d, torch.bfloat16), gen)
+            x = torch.randn((b, n, h * d), generator=gen, device="cuda")
+        else:
+            b, h, n, d = 4, 1, 4096, 512
+            mod = sdm.init_random_(sdm.VAEAttention(d, 32, torch.bfloat16), gen)
+            x = torch.randn((b, d, 64, 64), generator=gen, device="cuda")
+    # unit-variance operands, so the scores spread as N(0, 1), drawn once
+    proj, core = {}, []
+
+    def operand(name):
+        def hook(_m, _inp, out):
+            if name not in proj:
+                proj[name] = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+            return proj[name]
+        return hook
+
+    for name in ("to_q", "to_k", "to_v"):
+        getattr(mod, name).register_forward_hook(operand(name))
+    mod.to_out[0].register_forward_pre_hook(lambda _m, args: core.append(args[0].float()))
+
+    kernels.reset_counts()
+    with torch.no_grad():
+        mod(x)
+        torch.cuda.synchronize()
+        assert kernels.COUNTS["flash_fwd"] == 1 and kernels.COUNTS["flash_fwd.tc"] == 1
+        with monkeypatch.context() as mp:
+            mp.setattr(fa, "flash_attention",
+                       lambda q, k, v, scale: fa.flash_attention_fwd_plain(q, k, v, scale)[0])
+            mod(x)
+        with monkeypatch.context() as mp:
+            mp.setattr(fa, "use_flash_attention", lambda *_: False)
+            mod(x)
+        assert kernels.COUNTS["flash_fwd"] == 1
+        q, k, v = (proj[t].reshape(b, n, h, d).transpose(1, 2) for t in ("to_q", "to_k", "to_v"))
+        ref = _attention_ref(q, k, v, d**-0.5).transpose(1, 2).reshape(b, n, h * d)
+    k4, plain_version, plain_branch = core
+    assert (k4 - plain_version).abs().max() <= _bf16_ulp(plain_version.abs().max().item())
+    e_k4, e_branch = k4 - ref, plain_branch - ref
+    assert e_k4.abs().max() <= e_branch.abs().max(), (e_k4.abs().max(), e_branch.abs().max())
+    assert e_k4.norm() <= e_branch.norm(), (e_k4.norm(), e_branch.norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_launches_at_every_admitted_self_attention(card, dtype):
+    """One pass of the tiny UNet at a 32x32 latent launches the K4 forward
+    at its three self-attentions of 1024 tokens (down_blocks.0's block,
+    up_blocks.1's two); the 256-token level and the cross-attentions take
+    the plain path. The VAE encoder's mid block at 64x64 launches one
+    forward, and its backward one dK/dV and one dQ. bfloat16 takes the
+    tensor-core variant, float32 the CUDA-core one."""
+    import dataclasses
+
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.guidance import sd_modules as sdm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.device("cuda"):
+        unet = sdm.init_random_(sdm.UNet2DCondition(
+            dataclasses.replace(sdm.tiny_unet_config(), dtype=dtype)), gen)
+        enc = sdm.init_random_(sdm.VAEEncoder(
+            dataclasses.replace(sdm.tiny_vae_config(), dtype=dtype)), gen)
+    lat = torch.randn((2, 4, 32, 32), generator=gen, device="cuda")
+    ctx = torch.randn((2, 4, 32), generator=gen, device="cuda")
+    kernels.reset_counts()
+    with torch.no_grad():
+        unet(lat, torch.full((2,), 500, device="cuda"), ctx)
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert kernels.COUNTS["flash_fwd"] == 3 and kernels.COUNTS["flash_fwd.tc"] == 3 * tc
+    img = torch.rand((1, 3, 128, 128), generator=gen, device="cuda", requires_grad=True)
+    enc(img).sum().backward()
+    torch.cuda.synchronize()
+    assert img.grad is not None and torch.isfinite(img.grad).all()
+    assert kernels.COUNTS["flash_fwd"] == 4 and kernels.COUNTS["flash_fwd.tc"] == 4 * tc
+    assert kernels.COUNTS["flash_bwd_dkv"] == 1 and kernels.COUNTS["flash_bwd_dq"] == 1

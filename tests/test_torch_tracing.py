@@ -285,3 +285,33 @@ def test_device_busy_counts_overlapping_kernels_once():
     assert P.busy_ms_of(events) == pytest.approx(0.76)
     assert P.busy_ms_of(events[:3]) == pytest.approx(0.15)
     assert P.busy_ms_of([]) == 0.0
+
+
+def test_every_attention_call_opens_one_attention_range():
+    """Each `Attention` / `VAEAttention` call of a tiny UNet pass and VAE
+    encode records one `sd.attention` range around its core: the scores'
+    softmax lies inside it, the q/k/v and output projections outside."""
+    from dreamscene_tpu_torch.guidance import sd_modules as sdm
+
+    gen = torch.Generator().manual_seed(0)
+    unet = sdm.init_random_(sdm.UNet2DCondition(sdm.tiny_unet_config()), gen).eval()
+    enc = sdm.init_random_(sdm.VAEEncoder(sdm.tiny_vae_config()), gen).eval()
+    calls = []
+    for mod in [*unet.modules(), *enc.modules()]:
+        if isinstance(mod, (sdm.Attention, sdm.VAEAttention)):
+            mod.register_forward_hook(lambda m, *_: calls.append(type(m).__name__))
+    lat = torch.randn((2, 4, 8, 8), generator=gen)
+    ctx = torch.randn((2, 4, 32), generator=gen)
+    img = torch.rand((2, 3, 16, 16), generator=gen)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        unet(lat, torch.full((2,), 500), ctx)
+        enc(img)
+    ranges = by_name(prof, "sd.")
+    assert list(ranges) == ["sd.attention"]
+    assert len(ranges["sd.attention"]) == len(calls)
+    assert sorted(set(calls)) == ["Attention", "VAEAttention"]
+    events = list(prof.events())
+    for r in ranges["sd.attention"]:
+        held = {e.name for e in events if e is not r and inside(e, r)}
+        assert "aten::softmax" in held, held
+        assert "aten::linear" not in held, held
