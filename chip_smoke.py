@@ -65,9 +65,8 @@ Phases (any failure exits non-zero; nothing is caught):
      convs filled with small seeded values so the residuals reach the
      UNet; eps with and without it on one UNet call), every step
      conditioned: 2 + 5 train_step()s, K4 forward launches checked at
-     10 + 4 per UNet pass, a profiled step (device time of the
-     `controlnet` range), peak memory; 9b. two config #4 stage-1 scene
-     steps with that ControlNet;
+     10 + 4 per UNet pass, a profiled step, peak memory; 9b. two config #4
+     stage-1 scene steps with that ControlNet;
  10. one small ControlNet FPS step on the card against the CPU;
  11. the checkpoint loader without a download: a tiny diffusers directory
      written under build/ (unet/ and controlnet/ as F16 safetensors, vae/
@@ -122,7 +121,8 @@ Phases (any failure exits non-zero; nothing is caught):
      atol 1e-4);
      14d. (after phase 9) one FPS step of phase 3's trainer inside
      utils/profiling.trace, whose Chrome trace must name every K1-K4
-     kernel symbol;
+     kernel symbol and hold as many K4 forward kernels as
+     kernels.COUNTS counts (its UNet passes replayed from CUDA graphs);
      14e. l1_loss and ssim on a [4,3,512,512] pair, card against CPU
      (atol 1e-5);
  15. config #5 (BASELINE.json): configs/scenes/sample_outdoor.yaml as
@@ -651,6 +651,23 @@ def k4_expect(rungs, per_pass, n_steps):
             "flash_fwd.tc": n_fwd, "flash_bwd_dkv.tc": n_steps, "flash_bwd_dq.tc": n_steps}
 
 
+def launch_counts():
+    """The kernel launch counters of kernels.COUNTS, its UNet pass counters
+    (guidance/unet_graph.py) left out."""
+    from dreamscene_tpu_torch import kernels
+
+    return {k: kernels.COUNTS[k] for k in kernels.KERNEL_NAMES + kernels.VARIANT_NAMES}
+
+
+def unet_passes():
+    """UNet passes since the last reset_counts(), by path: captured into a
+    CUDA graph (its warm-up is the pass), replayed, eager."""
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.guidance import unet_graph as ug
+
+    return {k.split(".")[1]: kernels.COUNTS[k] for k in (ug.CAPTURE, ug.REPLAY, ug.EAGER)}
+
+
 def run_controlnet_steps(tr):
     """Phase 9: phase 3's trainer with a full-width ControlNet conditioning
     every step (use_control_net_iter 0, controlnet_ratio 1). Returns the
@@ -682,18 +699,16 @@ def run_controlnet_steps(tr):
     g.mods.controlnet = cn
     tr.optim.use_control_net_iter = 0
     g.guidance_opt.controlnet_ratio = 1.0
-    calls = {"n": 0}
-    hook = cn.register_forward_hook(lambda *_: calls.__setitem__("n", calls["n"] + 1))
     n_steps = N_STEPS_WARM + N_STEPS_TIMED
     summary = {"eps_rel_l2_with_vs_without": rel}
     try:
         torch.cuda.reset_peak_memory_stats()
         ms, counts, rungs = fps_steps(tr, "controlnet")
         peak = torch.cuda.max_memory_allocated() / 2**30
-        # every step conditioned: one ControlNet pass per UNet pass
-        assert calls["n"] == sum(r + 1 for r in rungs), (calls, rungs)
-        # K4 at the UNet's 10 and the ControlNet trunk's 4 self-attentions
-        # of n >= 1024 per pass
+        passes = unet_passes()
+        assert sum(passes.values()) == sum(r + 1 for r in rungs), (passes, rungs)
+        # every step conditioned: K4 at the UNet's 10 and the ControlNet
+        # trunk's 4 self-attentions of n >= 1024 on every pass
         expect = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
         expect.update(k4_expect(rungs, 10 + 4, n_steps))
         assert counts == expect, (counts, expect)
@@ -701,10 +716,8 @@ def run_controlnet_steps(tr):
                         "launches": counts})
         log(f"[controlnet] median {ms:.1f} ms/step, rungs {rungs}, peak mem {peak:.1f} GiB, "
             f"launches {counts}")
-        summary["profile"] = profile_step(tr.train_step, ms, "controlnet_profile",
-                                          ranges=("controlnet",))
+        profile_step(tr.train_step, ms, "controlnet_profile")
     finally:
-        hook.remove()
         g.mods.controlnet = None
     log(json.dumps({"controlnet_steps": summary}))
     return {k: counts[k] for k in kernels.KERNEL_NAMES}, cn
@@ -730,12 +743,13 @@ def fps_steps(tr, tag):
         log(f"[{tag}] step {tr.step}: loss {loss:.6g}, {dt * 1e3:.1f} ms, "
             f"n_entries {tr.last_stats['n_entries']}, n_dropped {tr.last_stats['n_dropped']}, "
             f"ladder {tr.last_stats['n_rungs']} rungs")
-    counts = dict(kernels.COUNTS)
+    counts = launch_counts()
     assert all(math.isfinite(x) for x in losses), losses
     ms = float(np.median(times)) * 1e3
     log(json.dumps({tag: {"ms_per_step_median": ms, "ms_per_step": [t * 1e3 for t in times],
                           "n_entries": tr.last_stats["n_entries"],
-                          "n_dropped": tr.last_stats["n_dropped"], "launches": counts}}))
+                          "n_dropped": tr.last_stats["n_dropped"], "launches": counts,
+                          "unet_passes": unet_passes()}}))
     return ms, counts, rungs
 
 
@@ -796,8 +810,10 @@ def run_train():
         return ladder
 
     guidance.sample_ladder = record_ladder
+    # UNet passes from kernels.COUNTS (a replayed pass runs no hook)
     hooks = [getattr(guidance.mods, name).register_forward_hook(
-        lambda *_, name=name: calls.__setitem__(name, calls[name] + 1)) for name in calls]
+        lambda *_, name=name: calls.__setitem__(name, calls[name] + 1))
+        for name in ("vae_encoder", "vae_decoder")]
 
     timed = functools.partial(timed_call, parts)
     losses, actives = [], {}
@@ -836,7 +852,8 @@ def run_train():
         for h in hooks:
             h.remove()
     wall = time.perf_counter() - t0
-    counts = dict(kernels.COUNTS)
+    counts, passes = launch_counts(), unet_passes()
+    calls["unet"] = sum(passes.values())
 
     assert len(losses) == 6 and all(math.isfinite(x) for x in losses), losses
     assert actives[1500] != actives[1499], actives
@@ -858,7 +875,11 @@ def run_train():
                    "flash_bwd_dq.tc": len(losses)})
     assert all(counts[k] == v for k, v in expect.items()), (counts, expect, calls)
     assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES), counts
-    assert sum(fwd_shapes.values()) == counts["flash_fwd"], fwd_shapes
+    # the wrapper sees every eager launch and a capture's too (which the
+    # counts leave out: the capture launches nothing), but no replayed one
+    assert sum(fwd_shapes.values()) == (counts["flash_fwd"]
+                                        + 10 * (passes["capture"] - passes["replay"])), \
+        (fwd_shapes, passes)
     mesh_path = tr.ckpt_path / "smoke_mesh.ply"
     header = mesh_path.read_bytes().split(b"end_header\n")[0].decode()
     n_verts = int(header.split("element vertex ")[1].split()[0])
@@ -897,7 +918,7 @@ def run_train():
     log(json.dumps({"train": {"wall_s": wall, "parts_s": {k: {"calls": n, "s": sec}
                                                           for k, (n, sec) in parts.items()},
                               "launches": counts, "flash_fwd_by_shape": fwd_shapes,
-                              "module_calls": calls, "rungs": rungs,
+                              "module_calls": calls, "unet_passes": passes, "rungs": rungs,
                               "active": {"start": n0, **actives, "final": n_final},
                               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                               "mesh": {"n_verts": n_verts, "n_faces": n_faces,
@@ -944,7 +965,7 @@ KERNEL_BUCKETS = (("flash_fwd", "K4 flash_fwd"), ("flash_bwd_dkv", "K4 flash_bwd
                   ("reduce", "reduction"))
 
 
-def profile_step(step_fn, untraced_ms, tag, prefix="fps", ranges=()):
+def profile_step(step_fn, untraced_ms, tag, prefix="fps"):
     """One more step (`step_fn()`) under torch.profiler (printed as the
     JSON line `tag`): device busy time
     by phase and by kernel family, and the device's idle share of the
@@ -954,9 +975,7 @@ def profile_step(step_fn, untraced_ms, tag, prefix="fps", ranges=()):
     gap from the ladder's end to the optimizer's start (the loss terms and
     the whole backward, which autograd's device thread launches; its
     `.render.bwd` and `.vae_encode.bwd` ranges open only under a profiler
-    and are read by the benchmark). Each of `ranges` (a profiler range
-    that may open many times in the step, as `controlnet` does once per UNet
-    pass) gets the kernel time that starts inside any of its windows."""
+    and are read by the benchmark)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -967,15 +986,13 @@ def profile_step(step_fn, untraced_ms, tag, prefix="fps", ranges=()):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
 
-    spans, kern, opened = {}, [], {r: [] for r in ranges}
+    spans, kern = {}, []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         start, end = e.time_range.start, e.time_range.end
         if e.name.startswith(prefix + "."):
             spans[e.name] = (start, end)
-        elif e.name in opened:
-            opened[e.name].append((start, end))
         else:
             kern.append((start, (end - start) / 1e3, e.name))
     p = prefix
@@ -991,16 +1008,11 @@ def profile_step(step_fn, untraced_ms, tag, prefix="fps", ranges=()):
         b = next((lab for pat, lab in KERNEL_BUCKETS if pat in name.lower()), "other")
         buckets[b] = buckets.get(b, 0.0) + ms
     top = sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:12]
-    in_ranges = {r: {"windows": len(w), "device_busy_ms": sum(
-        ms for s, ms, _ in kern if any(lo <= s < hi for lo, hi in w))}
-        for r, w in opened.items()}
     log(json.dumps({tag: {
         "traced_step_wall_ms": wall_ms, "device_busy_ms": busy,
         "untraced_step_ms": untraced_ms, "device_idle_share": 1.0 - busy / untraced_ms,
         "phases_device_busy_ms": phases, "kernel_families_ms": buckets,
-        **({"ranges": in_ranges} if ranges else {}),
         "top_kernels_ms": [[k[:90], v] for k, v in top]}}))
-    return in_ranges
 
 
 def _to(x, dev):
@@ -1349,7 +1361,7 @@ def run_composition():
         loss, grads, out = step()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / COMP_TIMED
-    counts = dict(kernels.COUNTS)
+    counts = launch_counts()
     assert all(counts[k] == COMP_TIMED for k in K1_K3), counts
     assert math.isfinite(float(loss.detach())) and all(torch.isfinite(g).all() for g in grads)
     assert all(float(g.abs().max()) > 0 for g in grads)
@@ -1464,7 +1476,7 @@ def run_scene_steps(cn):
     tr.step, tr.iters = 0, max(cfg.sceneOptimizationParams.iterations - 300, 1)
     tr.guidance.stage_range, tr.guidance.jump_range = (350, 750), (150, 200)
     rec2 = scene_steps(tr, tr._stage2_cams(N_SCENE_TIMED * c), "floor", N_SCENE_TIMED, "scene")
-    counts = {"steps": dict(kernels.COUNTS)}
+    counts = {"steps": launch_counts()}
     n_steps = len(rec1) + len(rec2)
     expect = {k: c * n_steps for k in K1_K3}
     expect.update(k4_expect([r["n_rungs"] for r in rec1 + rec2], 10, n_steps))
@@ -1510,8 +1522,6 @@ def scene_controlnet_steps(tr, cn, n=2):
     saved = optp.use_control_net_iter, g.guidance_opt.controlnet_ratio
     g.mods.controlnet = cn
     optp.use_control_net_iter, g.guidance_opt.controlnet_ratio = 0, 1.0
-    calls = {"n": 0}
-    hook = cn.register_forward_hook(lambda *_: calls.__setitem__("n", calls["n"] + 1))
     try:
         c = tr.guidance_opt.C_batch_size
         tr.step, tr.iters = 0, optp.iterations
@@ -1519,13 +1529,13 @@ def scene_controlnet_steps(tr, cn, n=2):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
         recs = scene_steps(tr, tr._stage1_cams(n * c), "env", n, "scene controlnet")
-        counts = dict(kernels.COUNTS)
+        counts, passes = launch_counts(), unet_passes()
     finally:
-        hook.remove()
         g.mods.controlnet = None
         optp.use_control_net_iter, g.guidance_opt.controlnet_ratio = saved
     rungs = [r["n_rungs"] for r in recs]
-    assert calls["n"] == sum(r + 1 for r in rungs), (calls, rungs)
+    # every step conditioned: 10 + 4 K4 forwards on every pass (below)
+    assert sum(passes.values()) == sum(r + 1 for r in rungs), (passes, rungs)
     expect = {k: c * n for k in K1_K3}
     expect.update(k4_expect(rungs, 10 + 4, n))
     assert counts == expect, (counts, expect)
@@ -1568,7 +1578,7 @@ def run_scene_train(guidance, exp_root):
     finally:
         ST.save_splat_ply, ST.scene_step = save_ply, scene_step
     wall = time.perf_counter() - t0
-    counts = dict(kernels.COUNTS)
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     c = tr.guidance_opt.C_batch_size
@@ -1811,7 +1821,7 @@ def run_outdoor_steps(guidance):
     cams2 = tr._stage2_cams(N_SCENE_TIMED * c)
     g.stage_range = (350, 750)
     rec2 = scene_steps(tr, cams2, "floor", N_SCENE_TIMED, "outdoor")
-    counts = dict(kernels.COUNTS)
+    counts = launch_counts()
     n_steps = len(rec1) + len(rec2)
     expect = {k: c * n_steps for k in K1_K3}
     expect.update(k4_expect([x["n_rungs"] for x in rec1 + rec2], 10, n_steps))
@@ -1903,7 +1913,7 @@ def run_outdoor_train(guidance, exp_root):
     finally:
         ST.save_splat_ply, ST.scene_step = save_ply, scene_step
     wall = time.perf_counter() - t0
-    counts = dict(kernels.COUNTS)
+    counts = launch_counts()
 
     c = tr.guidance_opt.C_batch_size
     n_stage_steps = parts["scene_train_step"][0]
@@ -2081,7 +2091,7 @@ def busy_ms(step_fn) -> float:
     sharing it, spans that include the other ranks' time slices."""
     from dreamscene_tpu_torch.utils.profiling import device_busy_ms
 
-    return device_busy_ms(step_fn, skip=("fps.", "scene.", "controlnet"))
+    return device_busy_ms(step_fn, skip=("fps.", "scene."))
 
 
 def mesh_step(fn, rungs=None) -> dict:
@@ -2160,7 +2170,7 @@ def mesh_object_rank(rank, world, d):
     kernels.reset_counts()
     recs = [mesh_step(tr.train_step, lambda: tr.last_stats["n_rungs"])
             for _ in range(N_STEPS_WARM + 3)]
-    counts = dict(kernels.COUNTS)
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     busy = busy_ms(tr.train_step)
     out["steps"] = dict(recs=recs, counts=counts, peak_gib=peak, busy_ms=busy,
@@ -2410,7 +2420,7 @@ def mesh_scene_rank(rank, world, d):
     recs.append(mesh_step(lambda: tr._run_scene_step(
         cams[:1], "all", False, True, 1.0, guidance_on=False, gt_images=[gt],
         optp=tr.cfg.reconSceneOptimizationParams)))
-    out["steps"] = dict(recs=recs, counts=dict(kernels.COUNTS),
+    out["steps"] = dict(recs=recs, counts=launch_counts(),
                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                         flat=None if tr._flat_mesh is None else dict(tr._flat_mesh.shape))
     out["busy_ms"] = busy_ms(lambda: tr.scene_train_step(cams[:c], "env"))
@@ -2550,7 +2560,7 @@ def run_single_cam(tr):
     out, grad = render()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    counts = dict(kernels.COUNTS)
+    counts = launch_counts()
     assert all(counts[k] == 1 for k in K1_K3), counts
     assert tuple(out["image"].shape) == (3, 1080, 1920) and torch.isfinite(out["image"]).all()
     assert torch.isfinite(grad).all() and float(grad.abs().max()) > 0
@@ -2616,7 +2626,7 @@ def run_denoise(guidance):
     scores = walk()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    counts = dict(kernels.COUNTS)
+    counts = launch_counts()
     n_fwd = 10 * len(ts)
     expect = {k: 0 for k in kernels.KERNEL_NAMES + kernels.VARIANT_NAMES}
     expect.update({"flash_fwd": n_fwd, "flash_fwd.tc": n_fwd})
@@ -2654,7 +2664,10 @@ def run_denoise(guidance):
 def run_trace(tr):
     """Phase 14d: one FPS step of phase 3's trainer inside
     utils/profiling.trace; the Chrome trace it writes must name every K1-K4
-    kernel symbol the step launches. Returns the step's launch counts."""
+    kernel symbol the step launches, and hold as many K4 forward kernels as
+    `kernels.COUNTS["flash_fwd"]` counts: the step's UNet passes replay from
+    CUDA graphs, whose K4 launches the counter infers from their capture.
+    Returns the step's launch counts."""
     from dreamscene_tpu_torch import kernels
     from dreamscene_tpu_torch.utils import profiling
 
@@ -2663,20 +2676,24 @@ def run_trace(tr):
     with profiling.trace(d):
         loss = tr.train_step()
         torch.cuda.synchronize()
-    counts = dict(kernels.COUNTS)
+    counts, passes = launch_counts(), unet_passes()
     assert math.isfinite(loss)
     (path,) = glob.glob(os.path.join(d, "*.json"))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    kernel_events = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    names = set(kernel_events)
+    k4_fwd_events = sum("flash_fwd" in n for n in kernel_events)
     symbols = ("expand_kernel", "tile_order_kernel", "composite_fwd_kernel",
                "composite_bwd_kernel", "flash_fwd_wgmma_kernel", "flash_bwd_dkv_tc_kernel",
                "flash_bwd_dq_tc_kernel")
     found = {s: sum(s in n for n in names) for s in symbols}
     log(json.dumps({"trace": {"file_mb": os.path.getsize(path) / 2**20,
                               "kernel_names": len(names), "symbols": found,
+                              "k4_fwd_events": k4_fwd_events, "unet_passes": passes,
                               "launches": counts}}))
     assert all(found.values()), found
+    assert passes["replay"] > 0 and k4_fwd_events == counts["flash_fwd"], (passes, counts)
     assert all(counts[k] > 0 for k in kernels.KERNEL_NAMES), counts
     shutil.rmtree(d)
     return counts
@@ -2794,7 +2811,7 @@ def run_large_views():
         out, grad = fwd_bwd()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        counts = dict(kernels.COUNTS)
+        counts = launch_counts()
         assert all(counts[k] == 1 for k in K1_K3), counts
         assert tuple(out["image"].shape) == (3, h, w) and torch.isfinite(out["image"]).all()
         assert int(out["n_dropped"]) == 0
@@ -2827,7 +2844,7 @@ def run_bench():
     torch.cuda.empty_cache()
     kernels.reset_counts()
     result = B.main()
-    counts = dict(kernels.COUNTS)
+    counts = launch_counts()
     assert result["entries_dropped"] == 0, result
     assert (result["capacity"], result["raw_entries"]) == (cap, raw), (result, cap, raw)
     # the probe forward, then warm-up + ITERS + the profiled step, twice
@@ -2851,7 +2868,7 @@ def run_soaks():
     kernels.reset_counts()
     obj = soak_object.run(soak_object.build_cfg(**SOAK_OBJECT_CUT),
                           exp_root=fresh_dir("soak_object"))
-    by_path["object_soak"] = dict(kernels.COUNTS)
+    by_path["object_soak"] = launch_counts()
     log(json.dumps({"soak_object_cut": obj}))
     iters = SOAK_OBJECT_CUT["iters"]
     assert obj["event_steps"]["densify"] == list(range(100, iters, 100)), obj["event_steps"]
@@ -2864,7 +2881,7 @@ def run_soaks():
     kernels.reset_counts()
     scene = soak_scene.run(soak_scene.build_cfg(**SOAK_SCENE_CUT), n_stage3=1,
                            exp_root=fresh_dir("soak_scene"))
-    by_path["scene_soak"] = dict(kernels.COUNTS)
+    by_path["scene_soak"] = launch_counts()
     log(json.dumps({"soak_scene_cut": scene}))
     stage1 = SOAK_SCENE_CUT["stage1"]
     stage1_densify = [e for e in scene["event_steps"]["densify"] if str(e).startswith("stage1")]

@@ -28,6 +28,7 @@ device and enter the functions as explicit tensors.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import zlib
 from typing import Any, Callable
 
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 
 from dreamscene_tpu_torch.device import resolve_device
 from dreamscene_tpu_torch.guidance import sd_modules as sdm
+from dreamscene_tpu_torch.guidance.unet_graph import UNetPasses
 from dreamscene_tpu_torch.ops.ddim import (
     DiffusionSchedule,
     add_noise,
@@ -67,6 +69,10 @@ class GuidanceModules:
     # optional depth ControlNet: (latents, t, ctx, cond_nhwc) ->
     # (down residuals, mid residual) for the UNet's control_res
     controlnet: torch.nn.Module | None = None
+    # every UNet pass goes through here: replayed from a CUDA graph on the
+    # card, eager elsewhere (guidance/unet_graph.py)
+    passes: UNetPasses = dataclasses.field(default_factory=UNetPasses, init=False,
+                                           repr=False, compare=False)
 
 
 def _nhwc(x):
@@ -159,12 +165,18 @@ def _cond3(mods: GuidanceModules, cond_image):
 
 def _apply_unet(mods: GuidanceModules, inp, t_b, text_emb, cond3):
     """The UNet on NCHW latents, with the ControlNet's residuals added when
-    a hint is given (its device time is the `controlnet` profiler range)."""
+    a hint is given, through the stack's `passes` (replayed from a CUDA
+    graph on the card; guidance/unet_graph.py)."""
+    modules = (mods.unet,) if cond3 is None else (mods.unet, mods.controlnet)
+    return mods.passes(functools.partial(_unet_pass, mods.unet, mods.controlnet), modules,
+                       (inp, t_b, text_emb, cond3))
+
+
+def _unet_pass(unet, controlnet, inp, t_b, text_emb, cond3):
+    """One eager pass."""
     if cond3 is None:
-        return mods.unet(inp, t_b, text_emb)
-    with torch.profiler.record_function("controlnet"):
-        res = mods.controlnet(inp, t_b, text_emb, cond3)
-    return mods.unet(inp, t_b, text_emb, control_res=res)
+        return unet(inp, t_b, text_emb)
+    return unet(inp, t_b, text_emb, control_res=controlnet(inp, t_b, text_emb, cond3))
 
 
 def csd_grad(mods: GuidanceModules, scores, guidance_scale: float,

@@ -12,7 +12,9 @@ returns cudaGetLastError() and `check` raises on a non-zero code.
 `COUNTS` holds one launch counter per kernel; each wrapper adds one
 where it launches its kernel and nowhere else. The kernels that have a
 tensor-core and a CUDA-core variant also count the launches that took the
-tensor-core variant (`VARIANT_NAMES`).
+tensor-core variant (`VARIANT_NAMES`). A UNet pass replayed from a CUDA
+graph adds the counts its capture recorded, and counts itself in the same
+Counter (`unet_graph.capture`, `.replay`, `.eager`: guidance/unet_graph.py).
 """
 
 from __future__ import annotations
