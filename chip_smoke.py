@@ -220,8 +220,8 @@ SOURCES = {
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
 }
 K1_K3 = ("expand_entries", "composite_fwd", "composite_bwd")
-# K1's order kernel alone, and K1 in index order
-K1_ORDER_KEYS = ("order_kernel_ms", "index_order_ms")
+# K1's order kernel alone
+K1_ORDER_KEYS = ("order_kernel_ms",)
 K4 = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 BUILD = Path(__file__).resolve().parent / "build"
 # K4's shapes on the main path at config #2 width ([b, h, n, d], bf16):
@@ -418,18 +418,13 @@ def check_kernels(label, inp, timing):
         ops=pairs * BWD_OPS_PER_PAIR)
     for r in rows.values():
         r["bound_ms"], r["bound_by"] = bound(r["ops"], r["bytes"], torch.float32)
-    # K1's first kernel, the tile order, timed alone; and K1 less the same
-    # launch with a null tile-order pointer (no order kernel, the tiles
-    # dispatched in index order: the launcher's bench mode), which also holds
-    # what the dispatch order changes in the compositing kernel's time
-    lib, no_order = kernels.lib(), k1[0][:13] + (None,) + k1[0][14:]
+    # K1's first kernel, the tile order, timed alone
+    lib = kernels.lib()
     order_args = (meta[0].data_ptr(), meta[2].data_ptr(), meta[3].data_ptr(), n_chunks,
                   inp["n_tiles"], k1[1][-3].data_ptr(), kernels.stream_ptr(rt.device))
     kernels.check(lib.ds_tile_order(*order_args), "tile_order")
-    kernels.check(lib.ds_composite_fwd(*no_order), "composite_fwd")
-    r1 = rows["composite_fwd"]
-    r1["order_kernel_ms"] = cuda_time(lambda: lib.ds_tile_order(*order_args), 20)
-    r1["index_order_ms"] = cuda_time(lambda: lib.ds_composite_fwd(*no_order), 20)
+    rows["composite_fwd"]["order_kernel_ms"] = cuda_time(
+        lambda: lib.ds_tile_order(*order_args), 20)
     log(f"[kernels] {label} times: " + json.dumps(
         {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms", "launch_host_ms",
                                   "call_host_ms", *K1_ORDER_KEYS) if kk in v}
@@ -1346,7 +1341,7 @@ def run_composition():
         xyzs = [st.params["xyz"].detach().requires_grad_(True) for st in states]
         sts = [dataclasses.replace(st, params=dict(st.params, xyz=x))
                for st, x in zip(states, xyzs)]
-        out = scene_render(sts, cam, bg_color=(0.0, 0.0, 0.0), test=True)
+        out = scene_render(sts, cam, bg_color=(0.0, 0.0, 0.0))
         loss = out["image"].mean() + 0.1 * out["depth"].mean()
         loss.backward()
         return loss, [x.grad for x in xyzs], out
@@ -2540,8 +2535,7 @@ def run_single_cam(tr):
         env = sts[-1]
         xyz = env.params["xyz"].detach().requires_grad_(True)
         states = sts[:-1] + [dataclasses.replace(env, params=dict(env.params, xyz=xyz))]
-        out = scene_render(states, cam, bg_color=(0.0, 0.0, 0.0), test=True,
-                           capacity=ctrl.capacity(cap_base))
+        out = scene_render(states, cam, bg_color=(0.0, 0.0, 0.0), capacity=ctrl.capacity(cap_base))
         (out["image"].mean() + 0.1 * out["depth"].mean()).backward()
         return out, xyz.grad
 

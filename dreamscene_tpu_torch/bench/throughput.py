@@ -5,10 +5,7 @@ the repo's bench.py measures it, through the port's `render`.
 
     python3 -m dreamscene_tpu_torch.bench.throughput      # one CUDA card
 
-Prints ONE JSON line with bench.py's keys. `vs_baseline` divides by the
-nominal 26.2 Mpix/s forward + backward that Inria's
-diff-gaussian-rasterization reports at 512^2 for ~300K splats on an
-A100-class GPU (bench.py's reference figure).
+Prints ONE JSON line with bench.py's metric, value and unit.
 
 Headline: the entry table sized as training sizes it (`tracked_capacity`:
 the raw entry demand of this view x the controller's 1.1 pad, quantized to
@@ -35,7 +32,6 @@ N_GAUSSIANS = 300_000
 WIDTH = HEIGHT = 512
 ITERS = 10
 SH_DEGREE = 2
-CUDA_NOMINAL_PIXPS = 26.2e6
 CAP_MULT = int(os.environ.get("BENCH_CAP_MULT", 4))
 CHUNK = int(os.environ.get("BENCH_CHUNK", 512))
 CAP4_TILE, CAP4_CHUNK = (16, 16), 384
@@ -168,7 +164,6 @@ def main() -> dict:
         "metric": "pixels_per_s_fwd_bwd_512sq_300k_gaussians",
         "value": pix_ps,
         "unit": "pixels/s",
-        "vs_baseline": pix_ps / CUDA_NOMINAL_PIXPS,
         "gaussians_per_s": N_GAUSSIANS * pix_ps / pix,
         "methodology": "controller_tracked_capacity",
         "capacity": cap,
@@ -185,7 +180,6 @@ def main() -> dict:
                                             CAP4_CHUNK, CAP4_TILE, dev))
         c4_pix_ps = pix / (c4_ms / 1e3)
         result.update(cap4_pixels_per_s=c4_pix_ps,
-                      cap4_vs_baseline=c4_pix_ps / CUDA_NOMINAL_PIXPS,
                       cap4_entries_dropped=c4_dropped, cap4_cap_mult=CAP_MULT,
                       cap4_tile=list(CAP4_TILE), cap4_chunk=CAP4_CHUNK, cap4_ms_per_step=c4_ms)
     result["device"] = smi_line()

@@ -31,11 +31,12 @@
 // Two kernels per call:
 //  * a first kernel ranks the tiles by live entries, most first (one
 //    thread a tile, in shared memory that does not grow with the tile
-//    count: any tile count the binning takes); the main kernel dispatches the tiles' warps in that order, so the busiest tiles
-//    start at once, about one CTA to an SM, and the cheap ones fill in
-//    behind them (in plain tile order the busy middle of the image shared
-//    SMs: 0.21 against 0.176 ms at the path's scene on an NVIDIA H100 80GB
-//    HBM3 at a 700 W power limit, bench/k1_variants.py);
+//    count: any tile count the binning takes); the main kernel dispatches
+//    the tiles' warps in that order, so the busiest tiles start at once,
+//    about one CTA to an SM, and the cheap ones fill in behind them (in
+//    plain tile order the busy middle of the image shared SMs: 0.21 against
+//    0.176 ms at the path's scene on an NVIDIA H100 80GB HBM3 at a 700 W
+//    power limit; PERF.md, measured with a script of commit e119691);
 // then per warp:
 //  * the tile's chunk metadata is read once, 32 chunks to a load, and
 //    passed around by shuffles;
@@ -53,114 +54,16 @@
 //    pixel is stopped or has power > 0 or < FAR_POWER;
 //  * T and the accumulators run through the four in order without a branch
 //    (a stopped pixel or alpha == 0 adds 0 and keeps T).
-// Every pixel performs the same operations, in the same order, as the one
-// CTA per tile form (kept under -DDS_K1_PER_TILE, which only
-// bench/k1_variants.py builds), so out and the carry table are bit-equal to
-// it, whatever the order of the tiles. No float atomics, no shared state
-// between warps.
+// Every pixel performs the same operations, in the same order, whatever the
+// order of the tiles and the warp it falls in: it walks its tile's entries
+// one by one and stops as the chunk-local rule says. No float atomics, no
+// shared state between warps.
 
 #include <climits>
 
 #include "composite_common.cuh"
 
 namespace {
-
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-#ifdef DS_K1_PER_TILE
-
-// One CTA per tile, one thread per pixel, records staged through shared
-// memory in batches and read as broadcasts.
-constexpr int BATCH = 256;
-
-__global__ void composite_fwd_kernel(
-    const float* __restrict__ rec, int cap_pad,
-    const int* __restrict__ chunk_tile, const int* __restrict__ s0,
-    const int* __restrict__ lo, const int* __restrict__ hi, int n_chunks,
-    float* __restrict__ out, float* __restrict__ carry, int n_tiles, int tiles_x,
-    int tile_w, int tile_h, int /*warp_w*/, unsigned long long* __restrict__ unit_ns,
-    int skip_chunks) {
-  const unsigned long long t_start = unit_ns ? globaltimer() : 0ull;
-  __shared__ float srec[ds::N_LIVE][BATCH];
-  __shared__ int range[2];
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int tile_pix = blockDim.x;
-
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float T = 1.0f;
-  float live = 0.0f;
-
-  if (t < n_tiles) {
-    if (p == 0) {
-      range[0] = ds::lower_bound_i32(chunk_tile, n_chunks, t);
-      range[1] = ds::lower_bound_i32(chunk_tile, n_chunks, t + 1);
-      if (range[1] - range[0] > skip_chunks) range[1] = range[0];
-    }
-    __syncthreads();
-    const float px = (float)((t % tiles_x) * tile_w + p % tile_w);
-    const float py = (float)((t / tiles_x) * tile_h + p / tile_w);
-    for (int u = range[0]; u < range[1]; ++u) {
-      const int l = lo[u], h = hi[u];
-      if (h <= l) continue;               // uniform across the CTA
-      live += 1.0f;
-      float* c = carry + (size_t)u * ds::CARRY_ROWS * tile_pix + p;
-      c[0 * tile_pix] = acc[0];
-      c[1 * tile_pix] = acc[1];
-      c[2 * tile_pix] = acc[2];
-      c[3 * tile_pix] = acc[3];
-      c[4 * tile_pix] = T;
-      const int base = s0[u];
-      bool stopped = false;               // the stop rule is chunk-local
-      for (int j0 = l; j0 < h; j0 += BATCH) {
-        const int nb = min(BATCH, h - j0);
-        __syncthreads();
-        for (int i = p; i < nb * ds::N_LIVE; i += tile_pix) {
-          const int f = i / nb, k = i - f * nb;
-          srec[f][k] = rec[(size_t)f * cap_pad + base + j0 + k];
-        }
-        __syncthreads();
-        if (stopped) continue;
-        for (int k = 0; k < nb; ++k) {
-          ds::Rec e{srec[0][k], srec[1][k], srec[2][k], srec[3][k], srec[4][k],
-                    srec[5][k], srec[6][k], srec[7][k], srec[8][k], srec[9][k]};
-          float power, raw, ex;
-          const float alpha = ds::entry_alpha(e, px, py, &power, &raw, &ex);
-          const float t_next = T * (1.0f - alpha);
-          if (t_next < ds::T_EPS) { stopped = true; break; }
-          const float w = T * alpha;
-          acc[0] += w * e.r;
-          acc[1] += w * e.g;
-          acc[2] += w * e.b;
-          acc[3] += w * e.depth;
-          T = t_next;
-        }
-      }
-    }
-  }
-  float* o = out + (size_t)t * ds::ACC_ROWS * tile_pix + p;
-  o[0 * tile_pix] = acc[0];
-  o[1 * tile_pix] = acc[1];
-  o[2 * tile_pix] = acc[2];
-  o[3 * tile_pix] = acc[3];
-  o[4 * tile_pix] = T;
-  o[5 * tile_pix] = live;
-  o[6 * tile_pix] = 0.0f;
-  o[7 * tile_pix] = 0.0f;
-  if (unit_ns) {
-    __syncthreads();
-    if (p == 0) {
-      unit_ns[4 * t] = t_start;
-      unit_ns[4 * t + 1] = globaltimer();
-    }
-  }
-}
-
-#else  // one warp per 32 pixels
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 4;                  // warps per CTA
@@ -336,12 +239,12 @@ struct Group {
   float alpha[GROUP], r[GROUP], g[GROUP], b[GROUP], depth[GROUP];
 };
 
-// T and the accumulators through a group's entries, in order, as the one
-// CTA per tile form does, without a branch: a stopped pixel or an entry
+// T and the accumulators through a group's entries, in order, as a walk of
+// one entry at a time does, without a branch: a stopped pixel or an entry
 // with alpha == 0 leaves T as it is (T * (1 - 0) == T >= T_EPS) and adds
 // 0 * colour to each accumulator (acc + 0 == acc: an accumulator that
 // starts at +0 is never -0); an entry that would take T under T_EPS stops
-// the pixel and changes nothing, as in the per-tile form's `break`.
+// the pixel and changes nothing, as a `break` out of that walk would.
 __device__ __forceinline__ void composite(const Group& gr, float& T, float& acc0, float& acc1,
                                           float& acc2, float& acc3, bool& stopped) {
 #pragma unroll
@@ -364,19 +267,17 @@ __global__ void __launch_bounds__(WARPS * 32) composite_fwd_kernel(
     const int* __restrict__ chunk_tile, const int* __restrict__ s0,
     const int* __restrict__ lo, const int* __restrict__ hi, int n_chunks,
     float* __restrict__ out, float* __restrict__ carry, int n_tiles, int tiles_x,
-    int tile_w, int tile_h, int warp_w, const int* __restrict__ tile_order,
-    unsigned long long* __restrict__ unit_ns, int skip_chunks) {
+    int tile_w, int tile_h, int warp_w, const int* __restrict__ tile_order) {
   __shared__ float4 srec_all[WARPS][STAGES][BATCH * REC_F4];
   __shared__ float4 walk_all[WARPS][BATCH * REC_F4];
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const int tile_pix = tile_w * tile_h, wpt = tile_pix >> 5;
   const int gw = blockIdx.x * WARPS + wib;
   if (gw >= (n_tiles + 1) * wpt) return;                  // a whole warp
-  const unsigned long long t_start = unit_ns ? globaltimer() : 0ull;
   // a tile's warps are consecutive, the tiles in tile_order (most live
   // entries first, from tile_order_kernel)
   const int rank = gw / wpt, sub = gw - rank * wpt;
-  const int t = tile_order ? tile_order[rank] : rank;
+  const int t = tile_order[rank];
   float4* walk = walk_all[wib];
   const int warp_h = 32 / warp_w, per_row = tile_w / warp_w;
   const int bx = (sub % per_row) * warp_w, by = (sub / per_row) * warp_h;
@@ -385,13 +286,11 @@ __global__ void __launch_bounds__(WARPS * 32) composite_fwd_kernel(
   float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;
   float T = 1.0f;
   float live = 0.0f;
-  int walked = 0, batches = 0;                             // entries walked, batches staged
 
   if (t < n_tiles) {
     const int r = lane < 2 ? ds::lower_bound_i32(chunk_tile, n_chunks, t + lane) : 0;
     const int u0 = __shfl_sync(FULL, r, 0);
-    int u1 = __shfl_sync(FULL, r, 1);
-    if (u1 - u0 > skip_chunks) u1 = u0;
+    const int u1 = __shfl_sync(FULL, r, 1);
     const int tx0 = (t % tiles_x) * tile_w, ty0 = (t / tiles_x) * tile_h;
     const float px = (float)(tx0 + p % tile_w);
     const float py = (float)(ty0 + p / tile_w);
@@ -442,11 +341,7 @@ __global__ void __launch_bounds__(WARPS * 32) composite_fwd_kernel(
           if (lane < min(BATCH, cons.h - cons.j0)) {
             ea = srec[lane * REC_F4];
             eb = srec[lane * REC_F4 + 1];
-#ifdef DS_K1_NO_BOX
-            reach = true;
-#else
             reach = may_reach(ea.x, ea.y, ea.z, ea.w, eb.x, bx0, bx1, by0, by1);
-#endif
           }
           const unsigned todo = __ballot_sync(FULL, reach);
           if (reach) {
@@ -458,8 +353,6 @@ __global__ void __launch_bounds__(WARPS * 32) composite_fwd_kernel(
           n_walk = __popc(todo);
           __syncwarp();
         }
-        walked += n_walk;
-        batches += 1;
         // GROUP entries at a time: their exponents, then (unless alpha is 0
         // for every pixel of the warp and all GROUP entries, K2's far-entry
         // skip) their exps and alphas, then T and the accumulators through
@@ -508,12 +401,6 @@ __global__ void __launch_bounds__(WARPS * 32) composite_fwd_kernel(
   o[5 * tile_pix] = live;
   o[6 * tile_pix] = 0.0f;
   o[7 * tile_pix] = 0.0f;
-  if (unit_ns && lane == 0) {
-    unit_ns[4 * gw] = t_start;
-    unit_ns[4 * gw + 1] = globaltimer();
-    unit_ns[4 * gw + 2] = walked;
-    unit_ns[4 * gw + 3] = batches;
-  }
 }
 
 // The width of a warp's pixel block: 8 x 4 where the tile allows it (the
@@ -526,48 +413,29 @@ int pick_warp_w(int tile_w, int tile_h) {
   return 0;
 }
 
-#endif
-
-int launch(const void* rec, int cap_pad, const void* chunk_tile, const void* s0,
-           const void* lo, const void* hi, int n_chunks, void* out, void* carry,
-           int n_tiles, int tiles_x, int tile_w, int tile_h, int warp_w,
-           void* tile_order, void* unit_ns, int skip_chunks, void* stream) {
-  const int tile_pix = tile_w * tile_h;
-  if (tile_pix % 32 != 0 || tile_pix > 1024 || n_tiles < 1) return (int)cudaErrorInvalidValue;
-#ifdef DS_K1_PER_TILE
-  composite_fwd_kernel<<<n_tiles + 1, tile_pix, 0, (cudaStream_t)stream>>>(
-      (const float*)rec, cap_pad, (const int*)chunk_tile, (const int*)s0,
-      (const int*)lo, (const int*)hi, n_chunks, (float*)out, (float*)carry, n_tiles,
-      tiles_x, tile_w, tile_h, warp_w, (unsigned long long*)unit_ns, skip_chunks);
-  (void)tile_order;
-#else
-  if (warp_w == 0) warp_w = pick_warp_w(tile_w, tile_h);
-  if (warp_w <= 0 || 32 % warp_w != 0 || tile_w % warp_w != 0 || tile_h % (32 / warp_w) != 0)
-    return (int)cudaErrorInvalidValue;
-  if (tile_order) launch_tile_order(chunk_tile, lo, hi, n_chunks, n_tiles, tile_order, stream);
-  const int warps = (n_tiles + 1) * (tile_pix / 32);
-  composite_fwd_kernel<<<(warps + WARPS - 1) / WARPS, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const float*)rec, cap_pad, (const int*)chunk_tile, (const int*)s0,
-      (const int*)lo, (const int*)hi, n_chunks, (float*)out, (float*)carry, n_tiles,
-      tiles_x, tile_w, tile_h, warp_w, (const int*)tile_order, (unsigned long long*)unit_ns,
-      skip_chunks);
-#endif
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// tile_order: scratch for n_tiles + 1 ints, where a first kernel puts the tiles in the order the main kernel dispatches them (most live
-// entries first); null dispatches them as 0, 1, 2, ... (bench only).
+// tile_order: scratch for n_tiles + 1 ints, where a first kernel puts the
+// tiles in the order the main kernel dispatches them (most live entries
+// first); null is refused.
 extern "C" int ds_composite_fwd(
     const void* rec, int cap_pad, const void* chunk_tile, const void* s0,
     const void* lo, const void* hi, int n_chunks, void* out, void* carry,
     int n_tiles, int tiles_x, int tile_w, int tile_h, void* tile_order, void* stream) {
-  return launch(rec, cap_pad, chunk_tile, s0, lo, hi, n_chunks, out, carry, n_tiles,
-                tiles_x, tile_w, tile_h, 0, tile_order, nullptr, INT_MAX, stream);
+  const int tile_pix = tile_w * tile_h;
+  const int warp_w = pick_warp_w(tile_w, tile_h);
+  if (tile_pix % 32 != 0 || tile_pix > 1024 || n_tiles < 1 || tile_order == nullptr ||
+      warp_w <= 0)
+    return (int)cudaErrorInvalidValue;
+  launch_tile_order(chunk_tile, lo, hi, n_chunks, n_tiles, tile_order, stream);
+  const int warps = (n_tiles + 1) * (tile_pix / 32);
+  composite_fwd_kernel<<<(warps + WARPS - 1) / WARPS, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)rec, cap_pad, (const int*)chunk_tile, (const int*)s0,
+      (const int*)lo, (const int*)hi, n_chunks, (float*)out, (float*)carry, n_tiles,
+      tiles_x, tile_w, tile_h, warp_w, (const int*)tile_order);
+  return (int)cudaGetLastError();
 }
 
-#ifndef DS_K1_PER_TILE
 // The first kernel alone, the tile order into order[0 .. n_tiles]
 // (chip_smoke.py times it beside K1).
 extern "C" int ds_tile_order(const void* chunk_tile, const void* lo, const void* hi,
@@ -575,20 +443,4 @@ extern "C" int ds_tile_order(const void* chunk_tile, const void* lo, const void*
   if (n_tiles < 1) return (int)cudaErrorInvalidValue;
   launch_tile_order(chunk_tile, lo, hi, n_chunks, n_tiles, order, stream);
   return (int)cudaGetLastError();
-}
-#endif
-
-// For bench/k1_variants.py: the same launch with a warp block width of its
-// own choosing (0: the launcher's), each CTA (per-tile build) or warp writing
-// its start and end on the card's nanosecond timer into unit_ns[4 * unit]
-// (a warp also the entries it walked and the batches it staged), and
-// tiles with more than skip_chunks chunks returning at once (their
-// values are wrong on purpose: the time says what the busiest tiles cost).
-extern "C" int ds_composite_fwd_timed(
-    const void* rec, int cap_pad, const void* chunk_tile, const void* s0,
-    const void* lo, const void* hi, int n_chunks, void* out, void* carry,
-    int n_tiles, int tiles_x, int tile_w, int tile_h, int warp_w, void* tile_order,
-    void* unit_ns, int skip_chunks, void* stream) {
-  return launch(rec, cap_pad, chunk_tile, s0, lo, hi, n_chunks, out, carry, n_tiles,
-                tiles_x, tile_w, tile_h, warp_w, tile_order, unit_ns, skip_chunks, stream);
 }

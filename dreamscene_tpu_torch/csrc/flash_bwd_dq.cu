@@ -37,8 +37,8 @@
 //    (128 KB) and two stages of 16-key K/V blocks (64 KB). The other
 //    tiling that fits (32 rows, 32-key blocks) re-reads K and V twice as
 //    often and is slower at the batch of 4 every backward launch of the
-//    training path has; compiling with -DDS_DQ512_ROWS32 swaps it in, which
-//    only bench/k4_dq_variants.py does, to time one against the other.
+//    training path has (PERF.md; the script that timed both is in commit
+//    e119691).
 //  * float32, or bfloat16 with d no multiple of 16 (flash_bwd_dq_kernel):
 //    scalar FMAs on the CUDA cores over float32 tiles (flash_common.cuh).
 
@@ -127,11 +127,7 @@ template <int D> struct TcCfg;
 template <> struct TcCfg<64> { static constexpr int NW = 4, BQ = 64, BK = 64, WM = 4; };
 template <> struct TcCfg<128> { static constexpr int NW = 8, BQ = 64, BK = 64, WM = 4; };
 template <> struct TcCfg<256> { static constexpr int NW = 8, BQ = 64, BK = 32, WM = 4; };
-#ifdef DS_DQ512_ROWS32   // the tiling that lost the measurement (bench only)
-template <> struct TcCfg<512> { static constexpr int NW = 8, BQ = 32, BK = 32, WM = 2; };
-#else
 template <> struct TcCfg<512> { static constexpr int NW = 8, BQ = 64, BK = 16, WM = 4; };
-#endif
 
 template <int D> constexpr size_t tc_smem() {
   using C = TcCfg<D>;

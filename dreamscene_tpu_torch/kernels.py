@@ -7,7 +7,11 @@ values against thresholds, so one contracted multiply-add can flip an
 integer key), and the objects are linked into build/kernels/libdstorch.so
 at the repository root. The library has a plain C interface loaded with
 ctypes: every pointer and the stream pass as c_void_p, every launcher
-returns cudaGetLastError() and `check` raises on a non-zero code.
+returns cudaGetLastError() and `check` raises on a non-zero code. The
+sources hold only the kernels the program launches, and the library exports
+only their launchers (`_SIGNATURES`, held to csrc/ by
+tests/test_torch_isolation.py). Designs that lost a measurement are in
+PERF.md; the scripts and sources that timed them last lived in commit e119691.
 
 `COUNTS` holds one launch counter per kernel; each wrapper adds one
 where it launches its kernel and nowhere else. The kernels that have a
@@ -63,16 +67,9 @@ _SIGNATURES = {
         _P,                                    # tile-order scratch
         _P,                                    # stream
     ],
-    "ds_tile_order": [                         # K1's first kernel alone; chip_smoke.py only
+    "ds_tile_order": [                         # K1's first kernel alone; chip_smoke.py, card tests
         _P, _P, _P, _I, _I,                    # chunk_tile lo hi n_chunks n_tiles
         _P,                                    # order
-        _P,                                    # stream
-    ],
-    "ds_composite_fwd_timed": [                # bench/k1_variants.py only
-        _P, _I, _P, _P, _P, _P, _I,            # rec cap_pad chunk_tile s0 lo hi n_chunks
-        _P, _P,                                # out carry
-        _I, _I, _I, _I, _I,                    # n_tiles tiles_x tile_w tile_h warp_w
-        _P, _P, _I,                            # tile_order unit_ns skip_chunks
         _P,                                    # stream
     ],
     "ds_composite_bwd": [

@@ -40,6 +40,7 @@ from dreamscene_tpu_torch.ops.projection import ProjectedSplats, project_gaussia
 from dreamscene_tpu_torch.ops.rasterizer import render, render_from_splats
 from dreamscene_tpu_torch.parallel import collectives as X
 from dreamscene_tpu_torch.parallel.distributed import Mesh, rank, world_size
+from dreamscene_tpu_torch.rendering import _clip
 
 log = logging.getLogger(__name__)
 
@@ -184,10 +185,6 @@ def gather_splat_state(mesh: Mesh, state: GaussianState) -> GaussianState:
     group = mesh.group("tp")
     return _map_state(state, lambda v: X.all_gather_cat(v, group), state.capacity,
                       global_capacity=None)
-
-
-def _clip(x, lo: float, hi: float):
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 def make_fps_camera_render(mesh: Mesh, width: int, height: int, sh_degree: int,

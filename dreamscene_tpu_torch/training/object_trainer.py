@@ -522,8 +522,7 @@ class ObjectTrainer:
         g = self.guidance
         # every rank renders and scores (the guidance's generators advance
         # alike on every rank); rank 0 writes the file
-        out = object_render(self._whole_state(self.state), camera, bg_color=self._bg_color(),
-                            test=True)
+        out = object_render(self._whole_state(self.state), camera, bg_color=self._bg_color())
         images = out["image"][None]
         latents = mtsd.encode_images(
             g.mods, images, g.next_normal(g.latent_shape(1, *images.shape[-2:])))
@@ -577,8 +576,8 @@ class ObjectTrainer:
         with torch.no_grad():
             for j in range(0, gt_size // 4 * 4, 4):
                 chunk = cams[j:j + 4]
-                imgs = torch.stack([object_render(self.state, cam, bg_color=self._bg_color(),
-                                                  test=True)["image"] for cam in chunk])
+                imgs = torch.stack([object_render(self.state, cam, bg_color=self._bg_color())["image"]
+                                    for cam in chunk])
                 text_emb, _ = assemble_text_embeddings(self.embeddings, chunk)
                 ladder = g.sample_ladder(0.0)
                 lat_shape = g.latent_shape(len(chunk), h, w)
@@ -608,8 +607,7 @@ class ObjectTrainer:
                 if self.rec_count % 100 == 0:
                     # recon-pair eval render (reference object_trainer.py:654-656)
                     with torch.no_grad():
-                        out = object_render(self.state, cams[i], bg_color=self._bg_color(),
-                                            test=True)
+                        out = object_render(self.state, cams[i], bg_color=self._bg_color())
                     grid = [torch.clamp(out["image"], 0, 1).cpu().numpy(),
                             self.gt_images[i].cpu().numpy()]
                     self._rank0_only(lambda: save_image_grid(
@@ -634,7 +632,7 @@ class ObjectTrainer:
     def _write_videos(self, state, tag: str):
         frames, depths, alphas = [], [], []
         for cam in S.load_clip_cam(self.pose_args):
-            out = object_render(state, cam, bg_color=(1, 1, 1), test=True)
+            out = object_render(state, cam, bg_color=(1, 1, 1))
             img = torch.clamp(out["image"], 0, 1).cpu().numpy()
             frames.append((np.transpose(img, (1, 2, 0)) * 255).astype(np.uint8))
             # un-premultiply, as the JAX package does with the disparity

@@ -698,8 +698,8 @@ class SceneTrainer:
         gts = []
         for j in range(0, self.gt_size // 4 * 4, step_size):
             chunk = cams[j:j + step_size]
-            imgs = torch.stack([scene_render(states, cam, bg_color=self.bg_color,
-                                             test=True)["image"] for cam in chunk])
+            imgs = torch.stack([scene_render(states, cam, bg_color=self.bg_color)["image"]
+                                for cam in chunk])
             text_emb, _ = assemble_text_embeddings(self.embeddings, chunk)
             ladder = g.sample_ladder(0.0)
             lat_shape = g.latent_shape(len(chunk), h, w)
@@ -762,7 +762,7 @@ class SceneTrainer:
     def _write_videos(self, states, tag, max_frames):
         frames, depths, alphas = [], [], []
         for cam in self.scene_cams_inference[:max_frames]:
-            out = scene_render(states, cam, bg_color=self.bg_color, test=True)
+            out = scene_render(states, cam, bg_color=self.bg_color)
             img = torch.clamp(out["image"], 0, 1).cpu().numpy()
             frames.append((np.transpose(img, (1, 2, 0)) * 255).astype(np.uint8))
             a = out["alpha"].cpu().numpy()

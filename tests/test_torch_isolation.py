@@ -127,3 +127,20 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
     np.testing.assert_array_equal(gid.numpy(), [2, 2, 0, 1, 1, 1])
     assert all(v == 0 for v in kernels.COUNTS.values())
     assert kernels._LIB is None
+
+
+def test_kernel_signatures_match_the_exported_launchers():
+    """The library's ctypes signatures are exactly the `extern "C" int ds_*`
+    launchers of csrc/*.cu, each with as many arguments as its C
+    declaration: without a card nothing else notices an entry whose launcher
+    is gone, or a launcher exported for no caller of the library."""
+    from dreamscene_tpu_torch import kernels
+
+    decl = re.compile(r'extern "C" int (ds_\w+)\s*\(([^)]*)\)')
+    found = {}
+    for src in sorted(kernels.CSRC.glob("*.cu")):
+        for name, params in decl.findall(src.read_text()):
+            assert name not in found, f"{name} exported twice"
+            found[name] = len(params.split(","))
+    assert set(kernels._SIGNATURES) == set(found)
+    assert {k: len(v) for k, v in kernels._SIGNATURES.items()} == found

@@ -173,7 +173,7 @@ def test_object_and_score_render_match_jax(render_state):
     tst = to_port(render_state)
     jo = JR.object_render(render_state, jcam, bg_color=(0.2, 0.3, 0.4), test=True,
                           interpret=True)
-    to = TR.object_render(tst, tcam, bg_color=(0.2, 0.3, 0.4), test=True)
+    to = TR.object_render(tst, tcam, bg_color=(0.2, 0.3, 0.4))
     for k in ("image", "depth", "raw_depth", "alpha"):
         np.testing.assert_allclose(to[k].detach().numpy(), np.asarray(jo[k]), atol=1e-5,
                                    rtol=1e-4, err_msg=k)

@@ -129,9 +129,9 @@ def test_rotation_equivariance_render():
     tplaced, _, _ = TSc.place_object(convert.state_from(st), **kw)
     base = convert.state_from(st)
     bg = (0.0, 0.0, 0.0)
-    out_rot = TR.object_render(tplaced, cam_at_phi(30.0), bg_color=bg, test=True)
-    diffs = [float((out_rot["image"] - TR.object_render(base, cam_at_phi(30.0 + d), bg_color=bg,
-                                                        test=True)["image"]).abs().mean())
+    out_rot = TR.object_render(tplaced, cam_at_phi(30.0), bg_color=bg)
+    diffs = [float((out_rot["image"] - TR.object_render(base, cam_at_phi(30.0 + d),
+                                                        bg_color=bg)["image"]).abs().mean())
              for d in (-90.0, 90.0)]
     assert min(diffs) < 2e-3, diffs
     jcam = cam_at_phi(30.0)
@@ -149,7 +149,7 @@ def test_scene_render_matches_jax_and_golden():
     bg = (0.2, 0.2, 0.2)
     j_out = JR.scene_render([a, b], jcam, bg_color=jnp.asarray(bg), test=True, interpret=True)
     ta, tb = convert.state_from(a), convert.state_from(b)
-    t_out = TR.scene_render([ta, tb], tcam(jcam), bg_color=bg, test=True)
+    t_out = TR.scene_render([ta, tb], tcam(jcam), bg_color=bg)
     assert_images(t_out, j_out)
     assert list(t_out["segments"]) == list(j_out["segments"]) == [0, 50, 100]
     inputs, offsets = TR.concat_states([ta, tb])
@@ -170,7 +170,7 @@ def test_exactly_empty_region_yields_finite_disparity():
         st.aux, active=jnp.zeros_like(st.aux.active)))
     jcam = make_camera(32, 32)
     j_out = JR.scene_render([st], jcam, bg_color=jnp.zeros(3), test=True, interpret=True)
-    t_out = TR.scene_render([convert.state_from(st)], tcam(jcam), bg_color=(0, 0, 0), test=True)
+    t_out = TR.scene_render([convert.state_from(st)], tcam(jcam), bg_color=(0, 0, 0))
     assert torch.isfinite(t_out["depth"]).all() and torch.isfinite(t_out["alpha"]).all()
     np.testing.assert_allclose(t_out["depth"].numpy(), 0.0, atol=1e-6)
     assert_images(t_out, j_out)
@@ -221,8 +221,8 @@ def test_compress_reduces_points_and_preserves_render():
     t2 = importance_filter(t0, np.random.default_rng(0), pose, prune_percent=0.5, n_views=8)
     assert TG.num_active(t2) < TG.num_active(t0)
     cam = tcam(make_camera(32, 32))
-    img_a = TR.object_render(t0, cam, test=True)["image"]
-    img_b = TR.object_render(t2, cam, test=True)["image"]
+    img_a = TR.object_render(t0, cam)["image"]
+    img_b = TR.object_render(t2, cam)["image"]
     assert float((img_a - img_b).abs().mean()) < 0.02
 
 

@@ -91,7 +91,8 @@ def test_only_render_matches_jax(tmp_path, monkeypatch, method):
     j_states = jtr._states(list(jtr.scene.objects))
     n_rows = sum(s.capacity for s in j_states)
     for i, (states, cam, kw, out) in enumerate(frames):
-        assert sum(s.capacity for s in states) == n_rows and kw["test"]
+        assert sum(s.capacity for s in states) == n_rows
+        assert kw == {"bg_color": ttr.bg_color}
         assert cam is tcams[i]
         jout = j_scene_render(j_states, jcams[i], bg_color=jtr.bg_color, test=True,
                               interpret=True)
