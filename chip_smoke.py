@@ -26,6 +26,12 @@ Phases (any failure exits non-zero; nothing is caught):
      / 5e-6 (gradients), bf16 at max|d| <= 2^-7 max|plain|; times of
      kernels, plain versions, SDPA (forward and forward+backward) and the
      matmul + f32-softmax module path;
+  2c. the norm kernels (group norm with SiLU, layer norm) against their
+     plain versions at every norm shape of an SD 2.1-width UNet pass at
+     batch 12, NCHW and channels-last: float32 outputs within 1e-5
+     (1 + |plain|), bf16 ones one ulp beyond that; the layouts a real pass
+     gives, and per shape and over a pass the kernel's, plain version's and
+     library chain's device ms and the bound;
   3. the slice: ObjectTrainer at BASELINE.json config #2 width (50K
      points, sh_degree 2, 512^2, C_batch 4, SD2.1-architecture UNet + full
      VAE with seeded random weights, 77 tokens, densify off):
@@ -218,6 +224,11 @@ SOURCES = {
                       "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
     "flash_bwd_dq": ("dreamscene_tpu_torch/csrc/flash_bwd_dq.cu",
                      "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
+    # no Pallas kernel: Flax's nn.GroupNorm / nn.LayerNorm, left to XLA
+    "group_norm_fwd": ("dreamscene_tpu_torch/csrc/norm.cu",
+                       "none (nn.GroupNorm, dreamscene_tpu/guidance/sd_flax.py:89-95, 218, 310)"),
+    "layer_norm_fwd": ("dreamscene_tpu_torch/csrc/norm.cu",
+                       "none (nn.LayerNorm, dreamscene_tpu/guidance/sd_flax.py:195-201)"),
 }
 K1_K3 = ("expand_entries", "composite_fwd", "composite_bwd")
 # K1's order kernel alone
@@ -238,6 +249,48 @@ K4_SHAPES = (("unet 64x64 self-attn", (12, 5, 4096, 64), torch.bfloat16),
 K4_ROW = {"flash_fwd": "unet 64x64 self-attn",
           "flash_bwd_dkv": "vae mid-attn, encode/pseudo-GT batch 4",
           "flash_bwd_dq": "vae mid-attn, encode/pseudo-GT batch 4"}
+NORMS = ("group_norm_fwd", "layer_norm_fwd")
+# The norms of one SD 2.1-width UNet pass at the ladder's batch (12 = 3
+# prompts x 4 cameras, 64x64 latents): group norms by (shape, SiLU after it,
+# token-major output, output dtype, calls a pass), layer norms by (shape,
+# calls a pass); 32 groups, bf16 input
+NORM_GN_SHAPES = (
+    ((12, 320, 64, 64), True, False, torch.bfloat16, 7),
+    ((12, 320, 64, 64), True, False, torch.float32, 1),      # conv_norm_out
+    ((12, 640, 64, 64), True, False, torch.bfloat16, 2),
+    ((12, 960, 64, 64), True, False, torch.bfloat16, 1),
+    ((12, 320, 32, 32), True, False, torch.bfloat16, 1),
+    ((12, 640, 32, 32), True, False, torch.bfloat16, 6),
+    ((12, 960, 32, 32), True, False, torch.bfloat16, 1),
+    ((12, 1280, 32, 32), True, False, torch.bfloat16, 1),
+    ((12, 1920, 32, 32), True, False, torch.bfloat16, 1),
+    ((12, 640, 16, 16), True, False, torch.bfloat16, 1),
+    ((12, 1280, 16, 16), True, False, torch.bfloat16, 6),
+    ((12, 1920, 16, 16), True, False, torch.bfloat16, 1),
+    ((12, 2560, 16, 16), True, False, torch.bfloat16, 2),
+    ((12, 1280, 8, 8), True, False, torch.bfloat16, 11),
+    ((12, 2560, 8, 8), True, False, torch.bfloat16, 3),
+    ((12, 320, 64, 64), False, True, torch.bfloat16, 5),     # before an attention block
+    ((12, 640, 32, 32), False, True, torch.bfloat16, 5),
+    ((12, 1280, 16, 16), False, True, torch.bfloat16, 5),
+    ((12, 1280, 8, 8), False, True, torch.bfloat16, 1),
+)
+NORM_LN_SHAPES = (((12, 4096, 320), 15), ((12, 1024, 640), 15), ((12, 256, 1280), 15),
+                  ((12, 64, 1280), 3))
+NORMS_PER_PASS = {"group_norm_fwd": sum(r[-1] for r in NORM_GN_SHAPES),
+                  "layer_norm_fwd": sum(r[-1] for r in NORM_LN_SHAPES)}
+# what the ControlNet's trunk (the UNet's down and mid blocks) adds to a pass
+NORMS_PER_CONTROLNET_PASS = {"group_norm_fwd": 27, "layer_norm_fwd": 21}
+# the SD VAE encoder's group norms (22 a call), differentiated in every FPS
+# step: their shapes at the step's batch (4 renders of 512^2), (shape, SiLU
+# after it, token-major output, output dtype)
+VAE_ENCODER_NORMS = 22
+NORM_ENCODER_GRAD_SHAPES = (
+    ((4, 128, 512, 512), True, False, torch.bfloat16),
+    ((4, 256, 256, 256), True, False, torch.bfloat16),
+    ((4, 512, 64, 64), False, True, torch.bfloat16),
+    ((4, 512, 64, 64), True, False, torch.float32),       # conv_norm_out: float32 conv_out
+)
 
 
 def log(*a):
@@ -269,6 +322,28 @@ def cuda_time(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_time(fn, reps):
+    """Mean device ms per call of `fn`, `reps` calls captured into one CUDA
+    graph and the graph replayed (as the ladder replays a UNet pass): what
+    the card spends, without the host's launch time per call."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def host_time(fn, reps):
@@ -553,6 +628,188 @@ def check_flash(label, shape, dtype, timing=True):
     return row
 
 
+def norm_error(k, p) -> float:
+    """max |kernel - plain| over its tolerance; <= 1 passes. Float32
+    outputs: 1e-5 (1 + |plain|), room for the float32 values' other order of
+    sums (the moments) and rounding (the normalisation's x * a + b cancels
+    where the output is near 0, so the gap is absolute there). bf16 outputs:
+    one bf16 ulp at the larger magnitude beyond that: the two round float32
+    values that differ by no more than the float32 tolerance."""
+    assert k.dtype == p.dtype and k.shape == p.shape, (k.dtype, k.shape, p.dtype, p.shape)
+    bf16 = k.dtype == torch.bfloat16
+    k, p = k.float(), p.float()
+    tol = 1e-5 * (1.0 + p.abs())
+    if bf16:
+        mag = torch.maximum(k.abs(), p.abs()).clamp_min(2.0**-126)
+        tol = tol + torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((k - p).abs() / tol).max())
+
+
+def norm_case(shape, layout, gen, dtype=torch.bfloat16):
+    """Seeded input (mean 0.5, std 2, in `layout`) and affine of a norm."""
+    c = shape[1] if len(shape) == 4 else shape[-1]
+    x = (2.0 * torch.randn(shape, device="cuda", generator=gen) + 0.5).to(dtype)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = 1.0 + 0.3 * torch.randn(c, device="cuda", generator=gen)
+    b = 0.2 * torch.randn(c, device="cuda", generator=gen)
+    return x, w, b
+
+
+@functools.lru_cache(maxsize=1)
+def pass_norm_layouts():
+    """Phase 2c's first half: one SD 2.1-width UNet pass at the ladder's
+    batch on the card (seeded weights, bf16), recording the input layout of
+    every norm call; returns {(kind, shape, silu, tokens, out dtype,
+    layout): calls}."""
+    import collections
+
+    from dreamscene_tpu_torch.guidance import sd_modules as sdm
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    with torch.device("cuda"):
+        unet = sdm.init_random_(sdm.UNet2DCondition(sdm.sd21_unet_config()), gen)
+    unet.requires_grad_(False)
+    seen = collections.Counter()
+
+    def hook(m, args):
+        x = args[0]
+        layout = "nchw" if x.is_contiguous() else "channels_last"
+        if isinstance(m, sdm.GroupNorm):
+            seen[("group", tuple(x.shape), m.silu, m.tokens, m.out_dtype, layout)] += 1
+        else:
+            seen[("layer", tuple(x.shape), False, False, m.dt, layout)] += 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in unet.modules()
+             if isinstance(m, (sdm.GroupNorm, sdm.LayerNorm))]
+    with torch.no_grad():
+        unet(torch.randn((12, 4, 64, 64), device="cuda", generator=gen),
+             torch.full((12,), 500, device="cuda"),
+             torch.randn((12, 77, 1024), device="cuda", generator=gen))
+    for h in hooks:
+        h.remove()
+    del unet
+    torch.cuda.empty_cache()
+    return dict(seen)
+
+
+def check_norms(timing=True):
+    """Phase 2c: the norm kernels (csrc/norm.cu) against their plain versions
+    at every norm shape of an SD 2.1-width UNet pass (NORM_GN_SHAPES,
+    NORM_LN_SHAPES), each in NCHW and channels-last, within `norm_error`'s
+    tolerance; and, at the VAE encoder's shapes in an FPS step
+    (NORM_ENCODER_GRAD_SHAPES), the input gradient of the kernel's autograd
+    Function against autograd of the plain version, within the same
+    tolerance. Then the layouts a real pass gives each call, and per layout
+    and shape the kernel's time per launch, its bound (bytes read and
+    written at 3.35 TB/s), the plain version's and the library chain's (the
+    modules' former ops: F.group_norm on x.float(), F.silu, the permute
+    before an attention block, the cast; F.layer_norm on x.float(), the
+    cast), and their sums over a pass; device times, ten calls replayed from
+    a CUDA graph as the ladder replays a UNet pass. Returns (worst error
+    over its tolerance, worst max |kernel - plain|, rows for the kernel
+    table), the first two by kernel."""
+    import torch.nn.functional as F
+
+    from dreamscene_tpu_torch.ops import norms
+    from dreamscene_tpu_torch.utils import profiling as P
+
+    eps = 1e-6
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    errs = {k: 0.0 for k in NORMS}
+    abs_errs = {k: 0.0 for k in NORMS}
+
+    def gn_calls(x, w, b, silu, tokens, out):
+        def chain():
+            y = F.group_norm(x.float(), 32, w, b, eps)
+            if silu:
+                y = F.silu(y)
+            if tokens:
+                n, c, h, wd = y.shape
+                y = y.permute(0, 2, 3, 1).reshape(n, h * wd, c)
+            return y.to(out)
+        return (lambda: norms.group_norm_kernel(x, 32, w, b, eps, silu, out, tokens)[0],
+                lambda: norms.group_norm_plain(x, 32, w, b, eps, silu, out, tokens), chain)
+
+    def ln_calls(x, w, b, out):
+        return (lambda: norms.layer_norm_kernel(x, w, b, eps, out)[0],
+                lambda: norms.layer_norm_plain(x, w, b, eps, out),
+                lambda: F.layer_norm(x.float(), w.shape, w, b, eps).to(out))
+
+    cases = [("group", shape, silu, tokens, out, layout)
+             for shape, silu, tokens, out, _ in NORM_GN_SHAPES
+             for layout in ("nchw", "channels_last")]
+    cases += [("layer", shape, False, False, torch.bfloat16, "nchw")
+              for shape, _ in NORM_LN_SHAPES]
+    bad = []
+
+    def held(what, name, k, p):
+        e = norm_error(k, p)
+        d = (k.float() - p.float()).abs().flatten()
+        errs[name] = max(errs[name], e)
+        abs_errs[name] = max(abs_errs[name], float(d.max()))
+        if e > 1.0:
+            i = int(d.argmax())
+            bad.append(f"{what}: {e:.3g} of its tolerance, max|d| {float(d[i]):.3g} at kernel "
+                       f"{float(k.flatten()[i]):.6g} / plain {float(p.flatten()[i]):.6g}")
+
+    for kind, shape, silu, tokens, out, layout in cases:
+        x, w, b = norm_case(shape, layout, gen)
+        kern, plain, _ = (gn_calls(x, w, b, silu, tokens, out) if kind == "group"
+                          else ln_calls(x, w, b, out))
+        held(f"{kind} norm {shape} {layout} silu={silu} tokens={tokens} -> {out}",
+             f"{kind}_norm_fwd", kern(), plain())
+    for shape, silu, tokens, out in NORM_ENCODER_GRAD_SHAPES:
+        x, w, b = norm_case(shape, "nchw", gen)
+        dy = torch.randn((shape[0], shape[2] * shape[3], shape[1]) if tokens else shape,
+                         device="cuda", generator=gen).to(out)
+        dx = []
+        for way in ("kernel", "plain"):
+            xg = x.detach().requires_grad_(True)
+            y = (norms.group_norm(xg, 32, w, b, eps, silu, out, tokens) if way == "kernel"
+                 else norms.group_norm_plain(xg, 32, w, b, eps, silu, out, tokens))
+            y.backward(dy)
+            dx.append(xg.grad)
+        held(f"group norm backward {shape} silu={silu} tokens={tokens} -> {out}",
+             "group_norm_fwd", *dx)
+        del x, dy, dx, xg, y
+    torch.cuda.empty_cache()
+    log(f"[norms] {len(cases)} forward and {len(NORM_ENCODER_GRAD_SHAPES)} backward cases "
+        f"against the plain versions: worst error over its tolerance {json.dumps(errs)}, "
+        f"worst max |kernel - plain| {json.dumps(abs_errs)}")
+    assert not bad, "\n".join(bad)
+    if not timing:
+        return errs, abs_errs, {}
+
+    layouts = pass_norm_layouts()
+    per_pass = {k: {"kernel_ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                    "launches": 0} for k in NORMS}
+    for (kind, shape, silu, tokens, out, layout), calls in sorted(layouts.items(), key=str):
+        x, w, b = norm_case(shape, layout, gen)
+        fns = (gn_calls(x, w, b, silu, tokens, out) if kind == "group"
+               else ln_calls(x, w, b, out))
+        ms = [graph_time(f, 10) for f in fns]
+        nbytes = x.numel() * (x.element_size() + torch.tensor([], dtype=out).element_size())
+        bound_ms = nbytes / P.H100_HBM_BYTES_PER_S * 1e3
+        row = {"kind": kind, "shape": shape, "silu": silu, "tokens": tokens,
+               "out": str(out)[6:], "layout": layout, "calls_a_pass": calls,
+               "ms": ms[0], "bound_ms": bound_ms, "plain_ms": ms[1], "library_ms": ms[2],
+               "x_bound": ms[0] / bound_ms}
+        log(f"[norms] {json.dumps(row)}")
+        tot = per_pass[f"{kind}_norm_fwd"]
+        for key, v in (("kernel_ms", ms[0]), ("bound_ms", bound_ms), ("plain_ms", ms[1]),
+                       ("library_ms", ms[2])):
+            tot[key] += calls * v
+        tot["launches"] += calls
+    assert {k: v["launches"] for k, v in per_pass.items()} == NORMS_PER_PASS, per_pass
+    log(json.dumps({"norms_per_pass": per_pass}))
+    rows = {k: dict(ms=v["kernel_ms"] / v["launches"], plain_ms=v["plain_ms"] / v["launches"],
+                    library_ms=v["library_ms"] / v["launches"],
+                    bound_ms=v["bound_ms"] / v["launches"], bound_by="bytes",
+                    per_pass=v, err_over_tol=errs[k]) for k, v in per_pass.items()}
+    return errs, abs_errs, rows
+
+
 def slice_cfg(dp=1, tp=1, shard_splats=False):
     """Phase 3's configuration (BASELINE.json config #2 width), on a dp x tp
     mesh when dp * tp > 1."""
@@ -612,7 +869,7 @@ def run_slice():
     # K1-K3 once a camera; K4 at the 10 self-attention layers of n >= 1024
     # per UNet pass and the VAE encoder's mid block
     expect = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
-    expect.update(k4_expect(rungs, 10, n_steps))
+    expect.update(guidance_expect(rungs, n_steps))
     assert counts == expect, (counts, expect)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[slice] median {ms:.1f} ms/step, rungs {rungs}, xyz moved {moved:.3g}, "
@@ -635,15 +892,22 @@ def fill_zero_convs(cn, gen, scale):
     return n
 
 
-def k4_expect(rungs, per_pass, n_steps):
-    """K4 launch counts of `n_steps` guidance steps with ladders of
-    `rungs` rungs: `per_pass` forwards per UNet pass (R rungs -> R+1
-    passes) plus one per VAE encode, one dK/dV and one dQ per step (the
-    encoder's backward); the whole path computes in bf16, so every
-    forward, dK/dV and dQ launch must have taken the tensor-core variant."""
-    n_fwd = sum(per_pass * (r + 1) + 1 for r in rungs)
+def guidance_expect(rungs, n_steps, controlnet=False):
+    """K4 and norm launch counts of `n_steps` guidance steps with ladders of
+    `rungs` rungs (R rungs -> R+1 UNet passes). K4: 10 forwards a UNet pass
+    (14 with the ControlNet's trunk) plus one per VAE encode, one dK/dV and
+    one dQ per step (the encoder's backward); the whole path computes in
+    bf16, so every forward, dK/dV and dQ launch must have taken the
+    tensor-core variant. Norms: every norm of every pass, and the VAE
+    encoder's 22 group norms a step (under autograd, with their moments)."""
+    n_passes = sum(r + 1 for r in rungs)
+    n_fwd = (10 + 4 * controlnet) * n_passes + len(rungs)
+    norms = {k: n_passes * (NORMS_PER_PASS[k] + controlnet * NORMS_PER_CONTROLNET_PASS[k])
+             for k in NORMS}
+    norms["group_norm_fwd"] += VAE_ENCODER_NORMS * len(rungs)
     return {"flash_fwd": n_fwd, "flash_bwd_dkv": n_steps, "flash_bwd_dq": n_steps,
-            "flash_fwd.tc": n_fwd, "flash_bwd_dkv.tc": n_steps, "flash_bwd_dq.tc": n_steps}
+            "flash_fwd.tc": n_fwd, "flash_bwd_dkv.tc": n_steps, "flash_bwd_dq.tc": n_steps,
+            **norms}
 
 
 def launch_counts():
@@ -705,7 +969,7 @@ def run_controlnet_steps(tr):
         # every step conditioned: K4 at the UNet's 10 and the ControlNet
         # trunk's 4 self-attentions of n >= 1024 on every pass
         expect = {k: tr.guidance_opt.C_batch_size * n_steps for k in K1_K3}
-        expect.update(k4_expect(rungs, 10 + 4, n_steps))
+        expect.update(guidance_expect(rungs, n_steps, controlnet=True))
         assert counts == expect, (counts, expect)
         summary.update({"ms_per_step_median": ms, "rungs": rungs, "peak_mem_gib": peak,
                         "launches": counts})
@@ -1474,7 +1738,7 @@ def run_scene_steps(cn):
     counts = {"steps": launch_counts()}
     n_steps = len(rec1) + len(rec2)
     expect = {k: c * n_steps for k in K1_K3}
-    expect.update(k4_expect([r["n_rungs"] for r in rec1 + rec2], 10, n_steps))
+    expect.update(guidance_expect([r["n_rungs"] for r in rec1 + rec2], n_steps))
     assert counts["steps"] == expect, (counts["steps"], expect)
     ms1 = float(np.median([r["ms"] for r in rec1[N_SCENE_WARM:]]))
     ms2 = float(np.median([r["ms"] for r in rec2]))
@@ -1532,7 +1796,7 @@ def scene_controlnet_steps(tr, cn, n=2):
     # every step conditioned: 10 + 4 K4 forwards on every pass (below)
     assert sum(passes.values()) == sum(r + 1 for r in rungs), (passes, rungs)
     expect = {k: c * n for k in K1_K3}
-    expect.update(k4_expect(rungs, 10 + 4, n))
+    expect.update(guidance_expect(rungs, n, controlnet=True))
     assert counts == expect, (counts, expect)
     log(json.dumps({"scene_controlnet_steps": {
         "steps": recs, "launches": counts,
@@ -1819,7 +2083,7 @@ def run_outdoor_steps(guidance):
     counts = launch_counts()
     n_steps = len(rec1) + len(rec2)
     expect = {k: c * n_steps for k in K1_K3}
-    expect.update(k4_expect([x["n_rungs"] for x in rec1 + rec2], 10, n_steps))
+    expect.update(guidance_expect([x["n_rungs"] for x in rec1 + rec2], n_steps))
     assert counts == expect, (counts, expect)
     ms1 = float(np.median([x["ms"] for x in rec1[N_SCENE_WARM:]]))
     ms2 = float(np.median([x["ms"] for x in rec2]))
@@ -2309,7 +2573,7 @@ def run_mesh_objects():
         s = o["steps"]
         n = len(s["recs"])
         expect = {k: b_local * n for k in K1_K3}
-        expect.update(k4_expect([r["n_rungs"] for r in s["recs"]], 10, n))
+        expect.update(guidance_expect([r["n_rungs"] for r in s["recs"]], n))
         assert s["counts"] == expect, (s["counts"], expect)
         assert all(math.isfinite(r["loss"]) for r in s["recs"])
         assert torch.equal(s["xyz"], outs[0]["steps"]["xyz"])
@@ -2484,7 +2748,7 @@ def run_mesh_scene():
     for o in outs:
         recs = o["steps"]["recs"]
         expect = {k: 2 * c + 1 for k in K1_K3}
-        expect.update(k4_expect([r["n_rungs"] for r in recs[:2]], 10, 2))
+        expect.update(guidance_expect([r["n_rungs"] for r in recs[:2]], 2))
         assert o["steps"]["counts"] == expect, (o["steps"]["counts"], expect)
     per_rank = [{"rank": r, "rows": o["rows"], "step_ms": [x["ms"] for x in o["steps"]["recs"]],
                  "collective_s": [x["collective_s"] for x in o["steps"]["recs"]],
@@ -2623,7 +2887,8 @@ def run_denoise(guidance):
     counts = launch_counts()
     n_fwd = 10 * len(ts)
     expect = {k: 0 for k in kernels.KERNEL_NAMES + kernels.VARIANT_NAMES}
-    expect.update({"flash_fwd": n_fwd, "flash_fwd.tc": n_fwd})
+    expect.update({"flash_fwd": n_fwd, "flash_fwd.tc": n_fwd,
+                   **{k: NORMS_PER_PASS[k] * len(ts) for k in NORMS}})
     assert counts == expect, (counts, expect)
     final = scores[-1][2]
     assert tuple(final.shape) == (1, 64, 64, 4) and torch.isfinite(final.float()).all()
@@ -2680,7 +2945,7 @@ def run_trace(tr):
     k4_fwd_events = sum("flash_fwd" in n for n in kernel_events)
     symbols = ("expand_kernel", "tile_order_kernel", "composite_fwd_kernel",
                "composite_bwd_kernel", "flash_fwd_wgmma_kernel", "flash_bwd_dkv_tc_kernel",
-               "flash_bwd_dq_tc_kernel")
+               "flash_bwd_dq_tc_kernel", "group_norm_kernel", "layer_norm_kernel")
     found = {s: sum(s in n for n in names) for s in symbols}
     log(json.dumps({"trace": {"file_mb": os.path.getsize(path) / 2**20,
                               "kernel_names": len(names), "symbols": found,
@@ -2913,6 +3178,9 @@ def main():
     for label, shape, dtype in K4_SHAPES:
         k4[label] = check_flash(label, shape, dtype)
         errs.update({k: max(errs[k], v) for k, v in k4[label]["errs"].items()})
+    _, e, norm_rows = check_norms()
+    errs.update(e)
+    mark("phase 2c")
     legs = [("small 2K 128^2 32x16", 2_000, 128, 128, 32, 16, False),
             ("16x16 tiles 20K 256^2", 20_000, 256, 256, 16, 16, False),
             ("full width 50K 512^2 32x16", 50_000, 512, 512, 32, 16, True)]
@@ -2941,6 +3209,7 @@ def main():
         rows[k] = dict(ms=r["ms"][k], variant=r["variant"][k], plain_ms=r["plain_ms"][k],
                        library_ms=r["library_ms"][k],
                        bound_ms=r["bound"][k][0], bound_by=r["bound"][k][1])
+    rows.update(norm_rows)
 
     by_path["object_steps"], tr = run_slice()
     mark("phase 3")
@@ -3036,8 +3305,8 @@ def main():
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
                       **({"scene_shapes": scenes} if scenes else {}),
-                      **{kk: r[kk] for kk in ("launch_host_ms", "call_host_ms",
-                                              *K1_ORDER_KEYS) if kk in r}})
+                      **{kk: r[kk] for kk in ("launch_host_ms", "call_host_ms", "per_pass",
+                                              "err_over_tol", *K1_ORDER_KEYS) if kk in r}})
     log(json.dumps({"k4_shapes": {lab: {kk: v for kk, v in r.items() if kk != "bound"}
                                   for lab, r in k4.items()}}))
     log(json.dumps({"kernels": table}))

@@ -9,9 +9,13 @@ up_blocks.{k} with k = n_blocks-1-i, encoder.mid_block.attentions.0.to_q,
 Modules work in NCHW. Parameters are float32; each layer computes in the
 config's dtype (bf16 for the SD2.1/VAE configs, f32 for the tiny ones) by
 casting its input and weights, as the Flax modules do. Normalizations
-compute in float32 with epsilon 1e-6 (Flax's default); GELU is the tanh
-approximation (Flax's default). Attention takes one path per shape and
-device (`ops/flash_attention.use_flash_attention`): on the card, every
+compute in float32 with epsilon 1e-6 (Flax's default) and round once to
+the dtype their consumer reads: a group norm also applies the SiLU that
+follows it and, before an attention block's projection, lays its output out
+token-major (ops/norms.py: on the card a hand-written kernel, differentiated
+from the moments it writes where autograd records). GELU is the tanh
+approximation (Flax's default). Attention takes one path per shape and device
+(`ops/flash_attention.use_flash_attention`): on the card, every
 self-attention of 1024+ tokens whose head dim K4 takes goes through the
 K4 flash-attention kernels, in `Attention` and `VAEAttention` alike, and
 so in the ControlNet's trunk, which reuses the UNet's classes; CPU
@@ -33,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dreamscene_tpu_torch.ops import flash_attention as fa
+from dreamscene_tpu_torch.ops import norms
 
 NORM_EPS = 1e-6
 
@@ -110,13 +115,18 @@ class Linear(nn.Linear):
 
 
 class GroupNorm(nn.GroupNorm):
-    """Float32 group norm (the Flax module promotes to float32)."""
+    """Group norm computed in float32 (the Flax module promotes to float32),
+    then the SiLU that follows it in its holder when `silu`, rounded once to
+    `out_dtype`, the dtype its consumer reads; [b, c, h, w], or [b, h*w, c]
+    when `tokens` (the input of an attention block's projection)."""
 
-    def __init__(self, groups, ch):
+    def __init__(self, groups, ch, out_dtype, silu=False, tokens=False):
         super().__init__(groups, ch, eps=NORM_EPS)
+        self.out_dtype, self.silu, self.tokens = out_dtype, silu, tokens
 
     def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return norms.group_norm(x, self.num_groups, self.weight, self.bias, self.eps,
+                                self.silu, self.out_dtype, self.tokens)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -127,8 +137,7 @@ class LayerNorm(nn.LayerNorm):
         self.dt = dtype
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
-                            self.eps).to(self.dt)
+        return norms.layer_norm(x, self.weight, self.bias, self.eps, self.dt)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0):
@@ -147,20 +156,20 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0):
 class ResnetBlock(nn.Module):
     def __init__(self, cin, cout, groups, dtype, temb_dim=None):
         super().__init__()
-        self.norm1 = GroupNorm(groups, cin)
+        self.norm1 = GroupNorm(groups, cin, dtype, silu=True)
         self.conv1 = Conv(cin, cout, 3, dtype, padding=1)
         if temb_dim is not None:
             self.time_emb_proj = Linear(temb_dim, cout, dtype)
-        self.norm2 = GroupNorm(groups, cout)
+        self.norm2 = GroupNorm(groups, cout, dtype, silu=True)
         self.conv2 = Conv(cout, cout, 3, dtype, padding=1)
         if cin != cout:
             self.conv_shortcut = Conv(cin, cout, 1, dtype)
 
     def forward(self, x, temb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x))
         if temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -235,7 +244,7 @@ class TransformerBlock(nn.Module):
 class SpatialTransformer(nn.Module):
     def __init__(self, ch, heads, head_dim, context_dim, groups, dtype):
         super().__init__()
-        self.norm = GroupNorm(groups, ch)
+        self.norm = GroupNorm(groups, ch, dtype, tokens=True)
         self.proj_in = Linear(ch, ch, dtype)
         self.transformer_blocks = nn.ModuleList(
             [TransformerBlock(ch, heads, head_dim, context_dim, dtype)])
@@ -244,8 +253,7 @@ class SpatialTransformer(nn.Module):
     def forward(self, x, context):
         b, c, h, w = x.shape
         res = x
-        y = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
-        y = self.proj_in(y)
+        y = self.proj_in(self.norm(x))
         y = self.transformer_blocks[0](y, context)
         y = self.proj_out(y)
         return y.reshape(b, h, w, c).permute(0, 3, 1, 2) + res
@@ -368,7 +376,7 @@ class UNet2DCondition(_UNetTrunk):
                 blk.upsamplers = nn.ModuleList([_Sampler(Conv(ch, ch, 3, dt, padding=1))])
             self.up_blocks.append(blk)
 
-        self.conv_norm_out = GroupNorm(cfg.num_groups, boc[0])
+        self.conv_norm_out = GroupNorm(cfg.num_groups, boc[0], torch.float32, silu=True)
         self.conv_out = Conv(boc[0], cfg.out_channels, 3, torch.float32, padding=1)
 
     def forward(self, latents, timesteps, context, control_res=None):
@@ -393,8 +401,7 @@ class UNet2DCondition(_UNetTrunk):
             if hasattr(blk, "upsamplers"):
                 x = F.interpolate(x, scale_factor=2, mode="nearest")
                 x = blk.upsamplers[0].conv(x)
-        x = F.silu(self.conv_norm_out(x))
-        return self.conv_out(x).float()
+        return self.conv_out(self.conv_norm_out(x)).float()
 
 
 class _CondEmbedding(nn.Module):
@@ -469,7 +476,7 @@ class VAEAttention(nn.Module):
 
     def __init__(self, ch, groups, dtype):
         super().__init__()
-        self.group_norm = GroupNorm(groups, ch)
+        self.group_norm = GroupNorm(groups, ch, dtype, tokens=True)
         self.to_q = Linear(ch, ch, dtype)
         self.to_k = Linear(ch, ch, dtype)
         self.to_v = Linear(ch, ch, dtype)
@@ -478,7 +485,7 @@ class VAEAttention(nn.Module):
 
     def forward(self, x):
         b, c, h, w = x.shape
-        y = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        y = self.group_norm(x)
         q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
         with torch.profiler.record_function("sd.attention"):
             if fa.use_flash_attention(h * w, h * w, c, x.device):
@@ -522,7 +529,7 @@ class _Encoder(nn.Module):
             self.down_blocks.append(blk)
             prev = ch
         self.mid_block = _VAEMid(boc[-1], cfg.num_groups, dt)
-        self.conv_norm_out = GroupNorm(cfg.num_groups, boc[-1])
+        self.conv_norm_out = GroupNorm(cfg.num_groups, boc[-1], torch.float32, silu=True)
         self.conv_out = Conv(boc[-1], 2 * cfg.latent_channels, 3, torch.float32, padding=1)
 
     def forward(self, x):
@@ -534,7 +541,7 @@ class _Encoder(nn.Module):
                 # asymmetric ((0,1),(0,1)) padding of the Flax/diffusers encoder
                 x = blk.downsamplers[0].conv(F.pad(x, (0, 1, 0, 1)))
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x))
 
 
 class VAEEncoder(nn.Module):
@@ -569,7 +576,7 @@ class _Decoder(nn.Module):
             if i > 0:
                 blk.upsamplers = nn.ModuleList([_Sampler(Conv(ch, ch, 3, dt, padding=1))])
             self.up_blocks.append(blk)
-        self.conv_norm_out = GroupNorm(cfg.num_groups, boc[0])
+        self.conv_norm_out = GroupNorm(cfg.num_groups, boc[0], torch.float32, silu=True)
         self.conv_out = Conv(boc[0], 3, 3, torch.float32, padding=1)
 
     def forward(self, z):
@@ -579,7 +586,7 @@ class _Decoder(nn.Module):
                 x = res(x)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0].conv(F.interpolate(x, scale_factor=2, mode="nearest"))
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x))
 
 
 class VAEDecoder(nn.Module):

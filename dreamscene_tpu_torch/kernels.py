@@ -19,6 +19,9 @@ tensor-core and a CUDA-core variant also count the launches that took the
 tensor-core variant (`VARIANT_NAMES`). A UNet pass replayed from a CUDA
 graph adds the counts its capture recorded, and counts itself in the same
 Counter (`unet_graph.capture`, `.replay`, `.eager`: guidance/unet_graph.py).
+The norms also count elements (ops/norms.py): `norm.kernel_elems`, read by
+their kernels; `norm.torch_elems`, taken by a norm's backward, which runs
+as PyTorch ops.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 COUNTS: collections.Counter = collections.Counter()
 KERNEL_NAMES = ("expand_entries", "composite_fwd", "composite_bwd", "flash_fwd",
-                "flash_bwd_dkv", "flash_bwd_dq")
+                "flash_bwd_dkv", "flash_bwd_dq", "group_norm_fwd", "layer_norm_fwd")
 VARIANT_NAMES = ("flash_fwd.tc", "flash_bwd_dkv.tc", "flash_bwd_dq.tc")
 
 _LIB = None
@@ -96,6 +99,17 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P,            # q k v l m dout di
         _P,                                    # dq
         _I, _I, _I, _F, _I, _I,                # bh n d scale bf16 tc
+        _P,                                    # stream
+    ],
+    "ds_group_norm_fwd": [
+        _P, _P, _P, _P, _P, _P,                # x gamma beta y mean rstd
+        _I, _I, _I, _I, _F,                    # n c hw groups eps
+        _I, _I, _I, _I, _I,                    # silu in_cl out_tok in_bf16 out_bf16
+        _P,                                    # stream
+    ],
+    "ds_layer_norm_fwd": [
+        _P, _P, _P, _P, _P, _P,                # x gamma beta y mean rstd
+        _I, _I, _F, _I, _I,                    # rows c eps in_bf16 out_bf16
         _P,                                    # stream
     ],
 }

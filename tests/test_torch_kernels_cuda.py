@@ -404,3 +404,177 @@ def test_k4_launches_at_every_admitted_self_attention(card, dtype):
     assert img.grad is not None and torch.isfinite(img.grad).all()
     assert kernels.COUNTS["flash_fwd"] == 4 and kernels.COUNTS["flash_fwd.tc"] == 4 * tc
     assert kernels.COUNTS["flash_bwd_dkv"] == 1 and kernels.COUNTS["flash_bwd_dq"] == 1
+
+
+def test_norm_kernels_match_plain_versions_at_the_ladder_shapes(card):
+    """Every group norm (with SiLU, or token-major before an attention
+    block) and layer norm of an SD 2.1-width UNet pass at batch 12, in NCHW
+    and channels-last, against the plain version: float32 outputs (the
+    conv_norm_out) within 1e-5 (1 + |plain|), bf16 outputs within one bf16
+    ulp beyond that, the two being one rounding of float32 values that differ
+    only in the order of the moments' sums (chip_smoke.norm_error, phase 2c)."""
+    import chip_smoke as cs
+
+    errs, _, _ = cs.check_norms(timing=False)
+    assert set(errs) == set(cs.NORMS) and all(e <= 1.0 for e in errs.values()), errs
+
+
+# the tiny float32 stacks' shapes, a float32 input before a bf16 layer, and
+# the kernels' other branches: 63 tokens (no whole 16-byte vectors), slabs
+# too large for shared memory (the VAE's 256^2 and 512^2 levels), which read
+# x a second time for the output
+@pytest.mark.parametrize("shape,groups,dtype,out", [
+    ((2, 32, 32, 32), 8, torch.float32, torch.float32),
+    ((2, 96, 32, 32), 8, torch.float32, torch.float32),
+    ((2, 128, 16, 16), 8, torch.float32, torch.float32),
+    ((1, 32, 64, 64), 8, torch.float32, torch.bfloat16),
+    ((2, 24, 7, 9), 4, torch.bfloat16, torch.bfloat16),
+    ((1, 128, 256, 256), 32, torch.bfloat16, torch.bfloat16),
+    ((1, 128, 512, 512), 32, torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("silu,tokens", [(True, False), (False, True)])
+def test_group_norm_kernel_other_shapes(card, shape, groups, dtype, out, layout, silu, tokens):
+    import chip_smoke as cs
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.ops import norms
+
+    x, w, b = cs.norm_case(shape, layout, torch.Generator(device="cuda").manual_seed(6), dtype)
+    kernels.reset_counts()
+    got, mean, rstd = norms.group_norm_kernel(x, groups, w, b, 1e-6, silu, out, tokens)
+    want = norms.group_norm_plain(x, groups, w, b, 1e-6, silu, out, tokens)
+    assert kernels.COUNTS["group_norm_fwd"] == 1
+    assert cs.norm_error(got, want) <= 1.0
+    n, c, h, wd = shape
+    _, want_mean, want_rstd = torch.ops.aten.native_group_norm(
+        x.float().contiguous(), w, b, n, c, h * wd, groups, 1e-6)
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+
+
+# the tiny stacks' rows, a float32 input before a bf16 layer, rows of no
+# whole 16-byte vectors (36 bf16) and rows longer than a lane's registers
+# hold (2,560 bf16)
+@pytest.mark.parametrize("shape,dtype,out", [
+    ((2, 1024, 32), torch.float32, torch.float32),
+    ((2, 256, 64), torch.float32, torch.float32),
+    ((2, 3, 36), torch.float32, torch.bfloat16),
+    ((3, 5, 36), torch.bfloat16, torch.bfloat16),
+    ((4, 7, 2560), torch.bfloat16, torch.bfloat16)])
+def test_layer_norm_kernel_other_shapes(card, shape, dtype, out):
+    import chip_smoke as cs
+    from dreamscene_tpu_torch.ops import norms
+
+    x, w, b = cs.norm_case(shape, "nchw", torch.Generator(device="cuda").manual_seed(7), dtype)
+    got, mean, rstd = norms.layer_norm_kernel(x, w, b, 1e-6, out)
+    assert cs.norm_error(got, norms.layer_norm_plain(x, w, b, 1e-6, out)) <= 1.0
+    _, want_mean, want_rstd = torch.ops.aten.native_layer_norm(x.float(), w.shape, w, b, 1e-6)
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+
+
+def test_replayed_pass_counts_its_captured_norm_launches(card):
+    """A UNet pass launches one norm kernel a norm (the tiny UNet: 21 group,
+    12 layer), eager, captured or replayed from its CUDA graph."""
+    import dataclasses
+
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.guidance import sd_modules as sdm
+    from dreamscene_tpu_torch.guidance import unet_graph as ug
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    with torch.device("cuda"):
+        unet = sdm.init_random_(sdm.UNet2DCondition(
+            dataclasses.replace(sdm.tiny_unet_config(), dtype=torch.bfloat16)), gen)
+    unet.requires_grad_(False)
+    args = (torch.randn((2, 4, 32, 32), generator=gen, device="cuda"),
+            torch.full((2,), 500, device="cuda"),
+            torch.randn((2, 4, 32), generator=gen, device="cuda"))
+    passes, deltas = ug.UNetPasses(), []
+    kernels.reset_counts()
+    with torch.no_grad():
+        for _ in range(ug.CAPTURE_AT + 2):
+            before = kernels.COUNTS.copy()
+            passes(unet, [unet], args)
+            deltas.append({k: kernels.COUNTS[k] - before[k]
+                           for k in ("group_norm_fwd", "layer_norm_fwd", "norm.torch_elems")})
+    torch.cuda.synchronize()
+    assert kernels.COUNTS[ug.CAPTURE] == 1 and kernels.COUNTS[ug.REPLAY] == 2
+    assert deltas == [{"group_norm_fwd": 21, "layer_norm_fwd": 12,
+                       "norm.torch_elems": 0}] * (ug.CAPTURE_AT + 2), deltas
+
+
+def test_encoder_under_autograd_takes_the_differentiable_norms(card, monkeypatch):
+    """The VAE encoder differentiated with respect to its images (as in the
+    FPS step) launches one norm kernel a norm (the tiny encoder: 10) inside
+    the kernels' autograd Function, whose backward takes every element once
+    (`norm.torch_elems`), and the images' gradient equals that of the plain
+    versions within `chip_smoke.norm_error`'s tolerance. Without autograd
+    it launches one kernel a norm as well."""
+    import chip_smoke as cs
+    from dreamscene_tpu_torch import kernels
+    from dreamscene_tpu_torch.guidance import sd_modules as sdm
+    from dreamscene_tpu_torch.ops import norms
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.device("cuda"):
+        enc = sdm.init_random_(sdm.VAEEncoder(sdm.tiny_vae_config()), gen)
+    enc.requires_grad_(False)
+    img = torch.rand((1, 3, 64, 64), generator=gen, device="cuda")
+
+    def grad():
+        x = img.clone().requires_grad_(True)
+        enc(x).sum().backward()
+        torch.cuda.synchronize()
+        return x.grad
+
+    kernels.reset_counts()
+    got = grad()
+    assert torch.isfinite(got).all()
+    assert kernels.COUNTS["group_norm_fwd"] == 10 and kernels.COUNTS["layer_norm_fwd"] == 0
+    assert kernels.COUNTS["norm.torch_elems"] == kernels.COUNTS["norm.kernel_elems"] > 0
+    with torch.no_grad():
+        enc(img)
+    assert kernels.COUNTS["group_norm_fwd"] == 20
+    with monkeypatch.context() as m:
+        m.setattr(norms, "path", lambda *t: "plain")
+        want = grad()
+    assert kernels.COUNTS["group_norm_fwd"] == 20
+    assert cs.norm_error(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("shape,dtype,out,silu,tokens", [
+    ((2, 96, 32, 32), torch.float32, torch.float32, True, False),
+    ((2, 24, 7, 9), torch.bfloat16, torch.bfloat16, False, True),
+    ((1, 128, 256, 256), torch.bfloat16, torch.bfloat16, True, False),
+    ((2, 3, 36), torch.bfloat16, torch.bfloat16, False, False),
+    ((4, 7, 640), torch.float32, torch.bfloat16, False, False)])
+def test_norm_gradients_from_kernel_moments_match_plain(card, shape, dtype, out, silu, tokens):
+    """x's, the weight's and the bias's gradients through the kernels'
+    autograd Function (group norm for 4-d shapes, layer norm otherwise)
+    against autograd of the plain versions, within `chip_smoke.norm_error`'s
+    tolerance; the weight's and bias's sums over the batch get 1e-5 of the
+    largest term's scale."""
+    import chip_smoke as cs
+    from dreamscene_tpu_torch.ops import norms
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x, w, b = cs.norm_case(shape, "nchw", gen, dtype)
+    group = len(shape) == 4
+    dy_shape = (shape[0], shape[2] * shape[3], shape[1]) if tokens else shape
+    dy = torch.randn(dy_shape, device="cuda", generator=gen).to(out)
+    grads = []
+    for way in ("kernel", "plain"):
+        xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, b))
+        if group:
+            y = (norms.group_norm(xg, 4, wg, bg, 1e-6, silu, out, tokens) if way == "kernel"
+                 else norms.group_norm_plain(xg, 4, wg, bg, 1e-6, silu, out, tokens))
+        else:
+            y = (norms.layer_norm(xg, wg, bg, 1e-6, out) if way == "kernel"
+                 else norms.layer_norm_plain(xg, wg, bg, 1e-6, out))
+        y.backward(dy)
+        grads.append((xg.grad, wg.grad, bg.grad))
+    (dx, dw, db), (px, pw, pb) = grads
+    assert cs.norm_error(dx, px) <= 1.0
+    scale = float(dy.float().abs().sum() / shape[-1 if not group else 1])
+    torch.testing.assert_close(dw, pw, rtol=1e-5, atol=1e-5 * scale)
+    torch.testing.assert_close(db, pb, rtol=1e-5, atol=1e-5 * scale)
