@@ -142,10 +142,13 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
     ladder on the ControlNet with the flipped disparities. Returns per-model new
     params/opt/aux (the input's where not trainable), the loss, the peak
     n_entries / n_dropped over the cameras, the trainable models' raw
-    gradients (None elsewhere) and the last camera's probe gradient. The
-    phases are marked as scene.* profiler ranges, the backward's parts too:
-    `scene.render.bwd` from the gradients of the render's outputs to those
-    of its inputs, `scene.vae_encode.bwd` (utils/profiling.BackwardSpans).
+    gradients (None elsewhere), the last camera's probe gradient and
+    `n_rows`, the rows concatenated over the models. The phases are marked
+    as scene.* profiler ranges, the backward's parts too: `scene.rows`
+    inside `scene.render` around the concatenation of the models' rows (and
+    a shard's pad), `scene.render.bwd` from the gradients of the render's
+    outputs to those of its inputs, `scene.vae_encode.bwd`
+    (utils/profiling.BackwardSpans).
 
     With a `mesh` (parallel/), this rank's part of the step: the
     arguments are the whole batch on every rank; states sharded over
@@ -192,18 +195,19 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
 
     spans = BackwardSpans()
     with torch.profiler.record_function("scene.render"):
-        fields, offsets = concat_states(whole)
-        total_c = int(offsets[-1])
-        n_tp = mesh.shape["tp"]
-        lo, hi = 0, total_c
-        if shard_splats:
-            pad = (-total_c) % n_tp
-            if pad:
-                fields = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
-                          for k, v in fields.items()}
-            rows = (total_c + pad) // n_tp
-            lo, hi = mesh.coords["tp"] * rows, (mesh.coords["tp"] + 1) * rows
-            fields = {k: v[lo:hi] for k, v in fields.items()}
+        with torch.profiler.record_function("scene.rows"):
+            fields, offsets = concat_states(whole)
+            total_c = int(offsets[-1])
+            n_tp = mesh.shape["tp"]
+            lo, hi = 0, total_c
+            if shard_splats:
+                pad = (-total_c) % n_tp
+                if pad:
+                    fields = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+                              for k, v in fields.items()}
+                rows = (total_c + pad) // n_tp
+                lo, hi = mesh.coords["tp"] * rows, (mesh.coords["tp"] + 1) * rows
+                fields = {k: v[lo:hi] for k, v in fields.items()}
         inputs = spans.end("scene.render.bwd", dict(
             xyz=fields["means3d"], features=fields["shs"], scaling=fields["scales"],
             rotation=fields["quats"], opacities=fields["opacities"], active=fields["valid_mask"]))
@@ -283,7 +287,7 @@ def scene_step(states: list, trainable: tuple, mods: mtsd.GuidanceModules, cams:
             new_aux.append(na_)
     return dict(params=new_params, opt=new_opt, aux=new_aux, loss=report,
                 n_entries=out["n_entries"], n_dropped=out["n_dropped"], grads=grads,
-                probe_grad=last_probe)
+                probe_grad=last_probe, n_rows=total_c)
 
 
 def _ckpt_leaves(st: GaussianState) -> list:
@@ -637,7 +641,8 @@ class SceneTrainer:
                 [res["loss"].double(), res["n_entries"].double(),
                  res["n_dropped"].double()]).tolist()
         self.last_stats = dict(n_entries=int(n_entries), n_dropped=int(n_dropped),
-                               n_rungs=len(args["ladder"]), capacity=args["capacity"])
+                               n_rungs=len(args["ladder"]), capacity=args["capacity"],
+                               n_rows=res["n_rows"])
         if self.cap_ctrl.update(cap_base, int(n_entries), int(n_dropped)):
             logger.info("scene entry capacity multiplier -> %.2fx/2", self.cap_ctrl.mult)
         self._write_back_states(names, [
@@ -645,9 +650,11 @@ class SceneTrainer:
             for s, p, o, a in zip(args["states"], res["params"], res["opt"], res["aux"])])
         return float(loss)
 
+    @torch.profiler.record_function("scene.densify")
     def _densify_model(self, which: str, optp, max_pts: int, size_threshold=None):
         """densify_and_prune with split samples seeded from the host
-        generator, consumed where the JAX trainer draws its key."""
+        generator, consumed where the JAX trainer draws its key; the
+        `scene.densify` profiler range."""
         st = self._whole(getattr(self.scene, which))
         setattr(self.scene, which, st)
         if num_active(st) < max_pts:

@@ -341,7 +341,7 @@ def step_recorders(jtr, ttr, seen_j, seen_t):
         z = torch.zeros((), dtype=torch.int32)
         return dict(params=[s.params for s in states], opt=[s.opt for s in states],
                     aux=[s.aux for s in states], loss=torch.zeros(()), n_entries=z,
-                    n_dropped=z)
+                    n_dropped=z, n_rows=sum(s.capacity for s in states))
 
     return j_recorder, t_recorder
 

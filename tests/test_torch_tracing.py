@@ -4,7 +4,8 @@ included (`utils/profiling.BackwardSpans`), on the CPU at a tiny size.
 Under torch.profiler one `ObjectTrainer.train_step`, one scene step and one
 `recon_step` record each of their ranges once; the render's backward range
 lies inside the step's backward and holds the rasterizer's autograd node,
-the VAE encoder's holds its convolutions' backward. A step gives the same
+the VAE encoder's holds its convolutions' backward; the scene step's
+`scene.rows` lies inside its `scene.render`. A step gives the same
 bits with and without a profiler, adds no node to the graph without one,
 and leaves no range open when its backward stops between the two marks of
 a range. `device_busy_ms` counts overlapping kernels once.
@@ -156,9 +157,9 @@ STEP_SPANS = {
     "fps": ["fps.step", "fps.step_inputs", "fps.render", "fps.render.bwd", "fps.vae_encode",
             "fps.vae_encode.bwd", "fps.ladder", "fps.backward", "fps.allreduce", "fps.adam",
             "fps.sync"],
-    "scene": ["scene.step", "scene.step_inputs", "scene.render", "scene.render.bwd",
-              "scene.vae_encode", "scene.vae_encode.bwd", "scene.ladder", "scene.backward",
-              "scene.allreduce", "scene.adam", "scene.sync"],
+    "scene": ["scene.step", "scene.step_inputs", "scene.render", "scene.rows",
+              "scene.render.bwd", "scene.vae_encode", "scene.vae_encode.bwd", "scene.ladder",
+              "scene.backward", "scene.allreduce", "scene.adam", "scene.sync"],
     "recon": ["recon.render", "recon.render.bwd", "recon.adam"],
 }
 
@@ -186,6 +187,8 @@ def test_step_records_each_range_once(kind, as_latent, viz, tmp_path):
         return
     for part in ("render.bwd", "vae_encode.bwd"):
         assert inside(spans[f"{kind}.{part}"], spans[f"{kind}.backward"]), part
+    if kind == "scene":
+        assert inside(spans["scene.rows"], spans["scene.render"])
     convs = [e for e in events if e.name == CONV_BWD]
     assert convs and all(inside(e, spans[f"{kind}.vae_encode.bwd"]) for e in convs)
     for name, e in spans.items():
